@@ -1,0 +1,509 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (soillib_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from soillib_tpu_torch/csrc, holds each against its
+plain torch version on the card, drives the coupled erosion step at full
+width (4096^2, 32 transport rounds) through the public entry points, and
+checks the results. Every phase raises on failure. The last two lines of
+standard output are a JSON object describing each kernel (its launches on
+the main path, its error against the plain version, its time, the plain
+version's time and its bound) and the final status line
+{"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
+
+Imports torch, numpy and the port; never JAX or the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
+# rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+
+# The cohort round's elementwise operations, counted per output element.
+_POINTWISE = {
+    "abs", "add", "bitwise_and", "clamp", "clamp_max", "clamp_min", "div",
+    "eq", "exp", "ge", "gt", "le", "lt", "maximum", "minimum", "mul", "ne",
+    "neg", "pow", "reciprocal", "rsqrt", "rsub", "sign", "sqrt", "sub",
+    "where",
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps):
+    """Mean device milliseconds of fn() over `reps` calls (one warm-up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def terrain(n, seed):
+    """Smooth seeded terrain: bilinear-upsampled random octaves (numpy
+    draws, upsampled on the card), height ~ 2 +- 0.5 as the golden tests
+    use."""
+    import torch
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(seed)
+    h = torch.zeros((n, n), dtype=torch.float32, device="cuda")
+    amp, total = 1.0, 0.0
+    for k in range(3, 9):  # 8^2 ... 256^2 control grids
+        m = 2 ** k
+        c = torch.from_numpy(rng.uniform(-1.0, 1.0, (1, 1, m, m))
+                             .astype(np.float32)).cuda()
+        h += amp * F.interpolate(c, size=(n, n), mode="bilinear",
+                                 align_corners=True)[0, 0]
+        total += amp
+        amp *= 0.5
+    return 2.0 + 0.5 * h / total
+
+
+def cohort_problem(kind, albedo, n, seed, device):
+    """Seeded cohort state/aux (the JAX kernel tests' recipe) and the real
+    rule set of `kind`."""
+    import torch
+
+    from soillib_tpu_torch.models import erosion
+    from soillib_tpu_torch.models.params import ErosionParams
+
+    rng = np.random.default_rng(seed)
+    C = (7 if albedo else 4) if kind == "fluvial" else (6 if albedo else 3)
+    w0 = np.abs(rng.normal(size=(n, n))) + 0.5
+    sp = rng.normal(size=(2, n, n)) * 3.0
+    carried = np.abs(rng.normal(size=(C, n, n)))
+    accel = rng.normal(size=(2, n, n))
+    if kind == "fluvial":
+        aux3 = -np.abs(rng.normal(size=(n, n)))   # momentum-decay rate
+    else:
+        aux3 = 0.5 * rng.normal(size=(n, n))      # excess slope
+    st = np.concatenate([np.stack([
+        w0, w0 * sp[0], w0 * sp[1], w0 * sp[0] ** 2, w0 * sp[1] ** 2,
+        w0 * sp[0] * sp[1], w0 * 0.5, w0 * 0.5, w0 / 3.0, w0 / 3.0]),
+        carried])
+    aux = np.concatenate([accel, np.ones((1, n, n)), aux3[None]])
+    p = ErosionParams()
+    Llen = math.sqrt(0.02)
+    if kind == "fluvial":
+        rules = erosion.make_fluvial_rules(p, Llen, albedo)
+    else:
+        rules = erosion.make_debris_rules(p, Llen, p.nSamples / n / n, albedo)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    return t(st), t(aux), rules, Llen
+
+
+def check_close(name, got, want, rtol, atol):
+    """Max abs error of got against want; raises unless every element is
+    within atol + rtol * |want| (atol may be a tensor that broadcasts)."""
+    import torch
+
+    err = (got - want).abs()
+    bad = err > atol + rtol * want.abs()
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} elements outside rtol {rtol} and the "
+            f"stated atol; max abs err {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def phase_kernel_vs_plain(n=512):
+    """Each kernel against its plain torch version on the card, on seeded
+    states of every rule set, albedo on and off."""
+    import torch
+
+    from soillib_tpu_torch.ops import cohort
+
+    for kind in ("fluvial", "debris"):
+        for albedo in (True, False):
+            st, aux, rules, Llen = cohort_problem(kind, albedo, n, 1, "cuda")
+            C = st.shape[0] - cohort.NSTATE
+            G = torch.zeros((C, n, n), device="cuda")
+            st_k = cohort.cohort_round_cuda(st, aux, G, rules, Llen)
+            st_p, G_p = cohort.cohort_round(st, torch.zeros_like(G), aux,
+                                            rules, Llen)
+            torch.cuda.synchronize()
+            e1 = check_close(f"{kind} albedo={albedo} 1-round state",
+                             st_k, st_p, 2e-6, 1e-5)
+            e2 = check_close(f"{kind} albedo={albedo} 1-round deposits",
+                             G, G_p, 2e-6, 1e-5)
+            _, g_k = cohort.cohort_advance_cuda(st, aux, rules, 16, Llen)
+            _, g_p = cohort.cohort_advance_reference(st, aux, rules, 16, Llen)
+            torch.cuda.synchronize()
+            # rtol 2e-5: the JAX kernel tests' multi-round bar
+            # (tests/test_sweep.py::test_cohort_kernel_multitile).
+            e3 = check_close(f"{kind} albedo={albedo} 16-round deposits",
+                             g_k, g_p, 2e-5, 1e-5)
+            log(f"  {kind:7s} albedo={int(albedo)} {n}^2: max abs err "
+                f"1 round state {e1:.3e} deposits {e2:.3e}; 16 rounds "
+                f"deposits {e3:.3e}")
+
+
+def finite_state(state, what):
+    import dataclasses
+
+    import torch
+
+    for f in dataclasses.fields(state):
+        a = getattr(state, f.name)
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what}: non-finite values in {f.name}")
+
+
+def phase_main_path(n=4096, steps=3, iters=32):
+    """ErosionSim at full width through the kernel; returns the sim and
+    the step times."""
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.ops import cohort
+
+    p = soil.ErosionParams()
+    p.transportIterations = iters
+    p.trackAlbedo = True
+    scale = (0.1, 0.1, 4.0)
+    state = soil.ErosionState.zeros((n, n), height=terrain(n, 7))
+    sim = soil.ErosionSim((n, n), scale, p, state=state)
+    for k in cohort.cohort_round_launches:
+        cohort.cohort_round_launches[k] = 0
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(cohort.cohort_round_launches)
+    finite_state(sim.state, f"{n}^2 erode")
+    if (tuple(sim.state.layers.shape) != (2, n, n)
+            or tuple(sim.state.discharge.shape) != (n, n)):
+        raise AssertionError("erode changed the state's shapes")
+    want = steps * iters
+    if launches != {"fluvial": want, "debris": want}:
+        raise AssertionError(f"launches {launches}, expected {want} per "
+                             f"rule set ({steps} steps x {iters} rounds)")
+    return sim, times, launches
+
+
+def capture_solves(sim):
+    """The cohort solve inputs of one more step of `sim` (st, aux, rules,
+    Llen per rule set), recorded at the dispatch point."""
+    from soillib_tpu_torch.ops import cohort
+
+    captured = {}
+    run = cohort.run_cohort
+
+    def spy(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
+        captured[rules.kind] = (cohort.as_stack(st0).contiguous(),
+                                cohort.as_stack(aux).contiguous(), rules,
+                                Llen)
+        return run(st0, aux, rules, iters, Llen, closure, tol)
+
+    cohort.run_cohort = spy
+    try:
+        sim.step()
+    finally:
+        cohort.run_cohort = run
+    return captured
+
+
+def ops_per_cell(rules, st, aux, Llen):
+    """Elementwise operations of one plain round per cell, counted by
+    dispatching it on a 32^2 CPU copy of the inputs."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from soillib_tpu_torch.ops import cohort
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__.rstrip("_") in _POINTWISE:
+                Count.n += out.numel()
+            return out
+
+    s = st[:, :32, :32].cpu()
+    a = aux[:, :32, :32].cpu()
+    G = torch.zeros((s.shape[0] - cohort.NSTATE, 32, 32))
+    with Count():
+        cohort.cohort_round(s, G, a, rules, Llen)
+    return Count.n / (32 * 32)
+
+
+def kernel_entry(kind, captured, launches):
+    """One kernel's line of the report at the main path's inputs: the
+    kernel against the plain round on them (1 round: state and deposits,
+    rtol 2e-6 / atol 1e-5; 16 rounds: deposits, rtol 2e-5 / atol 1e-5),
+    then both timed."""
+    import torch
+
+    from soillib_tpu_torch.ops import cohort
+
+    st, aux, rules, Llen = captured[kind]
+    S, W, H = st.shape
+    C = S - cohort.NSTATE
+    saved = dict(cohort.cohort_round_launches)
+    G = torch.zeros((C, W, H), device="cuda")
+    st_k = cohort.cohort_round_cuda(st, aux, G, rules, Llen)
+    st_p, G_p = cohort.cohort_round(st, torch.zeros_like(G), aux, rules,
+                                    Llen)
+    what = f"{kind} {S}x{W}x{H} main-path inputs"
+    err = max(check_close(f"{what}, 1-round state", st_k, st_p, 2e-6, 1e-5),
+              check_close(f"{what}, 1-round deposits", G, G_p, 2e-6, 1e-5))
+    del st_k, st_p, G_p
+    _, g_k = cohort.cohort_advance_cuda(st, aux, rules, 16, Llen)
+    _, g_p = cohort.cohort_advance_reference(st, aux, rules, 16, Llen)
+    err16 = check_close(f"{what}, 16-round deposits", g_k, g_p, 2e-5, 1e-5)
+    del g_k, g_p
+    log(f"  {kind:7s} {S}x{W}x{H}: max abs err 1 round {err:.3e}; 16 rounds "
+        f"deposits {err16:.3e}")
+    G.zero_()
+    out = torch.empty_like(st)
+    ms = cuda_ms(lambda: cohort.cohort_round_cuda(st, aux, G, rules, Llen,
+                                                  out=out), 20)
+    plain_ms = cuda_ms(lambda: cohort.cohort_round(st, G, aux, rules, Llen),
+                       3)
+    # Launches made to compare and time the kernel do not count.
+    cohort.cohort_round_launches.update(saved)
+    nbytes = 4 * W * H * (S + 4 + C + S + C)
+    ops = ops_per_cell(rules, st, aux, Llen) * W * H
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_F32_PER_S * 1e3
+    return {
+        "name": f"cohort_round[{kind}]",
+        "route": "cuda",
+        "source": "soillib_tpu_torch/csrc/cohort_round.cu",
+        "replaces": "soillib_tpu/ops/cohort.py:1480",
+        "launches": launches[kind],
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "shape": [S, W, H],
+        "max_abs_err_16_rounds": err16,
+        "bytes_per_cell_round": nbytes // (W * H),
+        "ops_per_cell_round": ops / (W * H),
+    }
+
+
+def phase_kernel_vs_plain_erode(n=256, steps=2, iters=32):
+    """A whole erode through the kernel (card) against the plain path
+    (CPU), on field statistics at the golden tests' rtol."""
+    import soillib_tpu_torch as soil
+
+    h = terrain(n, 11).cpu().numpy()
+    p = soil.ErosionParams()
+    p.transportIterations = iters
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = soil.ErosionState.zeros((n, n), height=h, device=dev)
+        out[dev] = soil.erode(st, (0.1, 0.1, 4.0), p, steps=steps)
+    for name in ("height", "discharge", "sediment"):
+        k = getattr(out["cuda"], name).cpu().numpy()
+        c = getattr(out["cpu"], name).numpy()
+        sk = np.array([k.mean(), k.std(), np.abs(k).max()])
+        sc = np.array([c.mean(), c.std(), np.abs(c).max()])
+        np.testing.assert_allclose(sk, sc, rtol=1e-3, err_msg=name)
+        log(f"  {name:9s} stats kernel {sk} plain {sc} max rel "
+            f"{np.max(np.abs(sk - sc) / np.abs(sc)):.2e}")
+
+
+def phase_faithful_depth(n=1024):
+    """transportIterations=0 (maxage-2 = 510 rounds) with the adaptive
+    exit. The kernel path checks the exit every TOL_CHECK_ROUNDS rounds,
+    the plain path every round: each solve of the step is rerun on the
+    plain path on the card, and the kernel must have run the plain exit
+    round rounded up to the next check (at most the bound), with deposits
+    within the multi-round bar (rtol 2e-5, atol 1e-5) plus what the extra
+    rounds may add, tol times the channel's deposit gauge."""
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.ops import cohort
+
+    p = soil.ErosionParams()
+    p.transportIterations = 0
+    p.transportTol = 1e-6
+    st = soil.ErosionState.zeros((n, n), height=terrain(n, 13))
+    solves = {}
+    run = cohort.run_cohort
+
+    def spy(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
+        n0 = cohort.cohort_round_launches[rules.kind]
+        g = run(st0, aux, rules, iters, Llen, closure, tol)
+        solves[rules.kind] = (cohort.as_stack(st0), cohort.as_stack(aux),
+                              rules, int(iters), Llen, tol, g.clone(),
+                              cohort.cohort_round_launches[rules.kind] - n0)
+        return g
+
+    for k in cohort.cohort_round_launches:
+        cohort.cohort_round_launches[k] = 0
+    cohort.run_cohort = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = soil.erode(st, (0.1, 0.1, 4.0), p, steps=1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        cohort.run_cohort = run
+    finite_state(st, f"{n}^2 faithful-depth erode")
+    rounds = dict(cohort.cohort_round_launches)
+    log(f"  {n}^2 transportTol=1e-6, bound {p.maxage - 2} rounds: rounds "
+        f"run {rounds}; step {ms:.1f} ms")
+
+    plain_round = cohort.cohort_round
+    for kind in ("fluvial", "debris"):
+        st0, aux, rules, iters, Llen, tol, g_k, r_k = solves[kind]
+        count = [0]
+
+        def counted(*a, **kw):
+            count[0] += 1
+            return plain_round(*a, **kw)
+
+        cohort.cohort_round = counted
+        try:
+            _, g_p = cohort.cohort_advance_reference(st0, aux, rules, iters,
+                                                     Llen, tol=tol)
+        finally:
+            cohort.cohort_round = plain_round
+        every = cohort.TOL_CHECK_ROUNDS
+        want = min(iters, -(-count[0] // every) * every)
+        if r_k != want:
+            raise AssertionError(
+                f"{kind}: kernel path ran {r_k} rounds; the plain path "
+                f"exits after {count[0]}, so {want} were due")
+        tail = tol * cohort.deposit_gauge(g_p)[:, None, None]
+        err = check_close(f"{kind} {n}^2 adaptive deposits", g_k, g_p, 2e-5,
+                          1e-5 + tail)
+        log(f"  {kind:7s} rounds kernel {r_k}, plain exit {count[0]}; "
+            f"deposits max abs err {err:.3e}")
+    return rounds, ms
+
+
+def phase_breakdown(sim):
+    """Device time of one more main-path step by kernel, from
+    torch.profiler: the cohort kernel's share, the rest (the plain torch
+    glue) and the device's idle share of the step's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = cohort_ms = 0.0
+    for e in prof.key_averages():
+        # Kernel events only: an operator's entry repeats its kernels'
+        # device time.
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = float(e.self_device_time_total) / 1e3
+        busy += ms
+        if "cohort_round_kernel" in e.key:
+            cohort_ms += ms
+    if busy <= 0.0:
+        log("  profiler recorded no device time: breakdown not measured")
+        return None
+    out = {"step_wall_ms": wall_ms, "device_busy_ms": busy,
+           "cohort_kernel_ms": cohort_ms, "other_kernels_ms": busy - cohort_ms,
+           "idle_share": max(0.0, 1.0 - busy / wall_ms)}
+    log("  " + json.dumps(out))
+    return out
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from soillib_tpu_torch import _native
+    from soillib_tpu_torch.ops import cohort
+
+    t_start = time.perf_counter()
+    log("phase 1: device and build")
+    smi = smi_line()
+    log(f"  {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"  nvidia-smi: {smi}")
+    t0 = time.perf_counter()
+    _native.build("cohort_round")
+    log(f"  built cohort_round in {time.perf_counter() - t0:.1f} s")
+    for line in _native.build_log("cohort_round").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    log("phase 2: kernel vs plain on the card")
+    phase_kernel_vs_plain()
+
+    log("phase 3: main path, ErosionSim 4096^2, 32 rounds, 3 steps")
+    sim, times, launches = phase_main_path()
+    log(f"  step ms {[round(t, 1) for t in times]}; steps 2-3 mean "
+        f"{np.mean(times[1:]):.1f} ms; launches {launches}")
+
+    log("phase 4: kernel path vs plain path, erode 256^2, 2 steps")
+    phase_kernel_vs_plain_erode()
+
+    log("phase 5: faithful depth")
+    phase_faithful_depth()
+
+    log("where the time goes: one profiled 4096^2 step")
+    phase_breakdown(sim)
+
+    log("kernel vs plain and timing at the main path's inputs")
+    captured = capture_solves(sim)
+    entries = [kernel_entry(k, captured, launches)
+               for k in ("fluvial", "debris")]
+    for e in entries:
+        log(f"  {e['name']}: {e['ms']:.3f} ms/launch, plain "
+            f"{e['plain_ms']:.2f} ms, bound {e['bound_ms']:.3f} ms "
+            f"({e['bound_by']}: {e['bytes_per_cell_round']} B, "
+            f"{e['ops_per_cell_round']:.0f} ops per cell-round)")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": entries}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

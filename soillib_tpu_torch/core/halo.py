@@ -1,0 +1,45 @@
+"""Halo (ghost-cell) protocol — the seam between single-device and
+block-decomposed execution (counterpart of `soillib_tpu/core/halo.py`).
+
+Every radius-r stencil is written against this protocol:
+
+    padded = halo.pad(field, fill)     # add an r-wide ring of neighbor data
+    ...radius-r stencil arithmetic on `padded`...
+    result = halo.crop(stencil_out)    # drop the ring
+
+On a single device `NO_HALO` makes both calls the identity, so the ops run
+as plain torch stencils whose internal `_shift` fills supply the boundary
+conditions. Only the single-device form exists so far; the sharded form
+(`ShardHalo` over `torch.distributed`) is still to be ported.
+"""
+
+from __future__ import annotations
+
+
+class NoHalo:
+    """Single-device: identity pad/crop; the cohort solve runs on one
+    device (the hand-written kernel for CUDA tensors, the plain torch
+    rounds for CPU tensors)."""
+
+    def pad(self, arr, fill, radius: int = 1):
+        return arr
+
+    def crop(self, arr, radius: int = 1):
+        return arr
+
+    def global_offsets(self, block_shape):
+        """(x0, y0, W_global, H_global) of this block in the global grid."""
+        return 0, 0, int(block_shape[0]), int(block_shape[1])
+
+    def run_cohort(self, st0, aux, rules, iters: int, Llen, closure=None,
+                   tol: float = 0.0):
+        """`iters` rounds of the age-structured cohort sweep -> (C, W, H)
+        deposits (ops/cohort.py `run_cohort`). `tol` > 0 enables the
+        convergence-adaptive depth exit."""
+        from soillib_tpu_torch.ops import cohort
+
+        return cohort.run_cohort(st0, aux, rules, iters, Llen, closure,
+                                 tol=tol)
+
+
+NO_HALO = NoHalo()

@@ -1,0 +1,553 @@
+// One round of the age-structured cohort sweep on Hopper (sm_90a).
+//
+// Replaces the TPU kernel soillib_tpu/ops/cohort.py:_cohort_kernel (its
+// Pallas launch is `_cohort_call`, driven by `cohort_advance`). That kernel
+// runs K = 16 rounds per device-memory pass on VMEM windows with a K-cell
+// halo; this one runs ONE round per launch, exactly as the plain version
+// (soillib_tpu_torch/ops/cohort.py `cohort_round` with `shift_push`) does:
+//
+//   st  (S, W, H)  cohort state: NSTATE = 10 moment channels + C carried
+//   aux (4, W, H)  accel x, accel y, domain mask, rules aux field
+//   G   (C, W, H)  deposits, updated in place: G += carried arrivals
+//   out (S, W, H)  next state (the arrivals), a separate buffer
+//
+// with S = 17, C = 7 (fluvial, albedo on), 14/4 (fluvial, albedo off),
+// 16/6 (debris, albedo on), 13/3 (debris, albedo off). All float32,
+// channel-first, x-major (index = (c * W + x) * H + y).
+//
+// Design. A block covers a 8 x 32 (x, y) tile of cells INCLUDING a 1-cell
+// ring; its 256 threads each evaluate one cell's round physics
+// (`_round_payloads` under the default closure) into registers: four
+// directional payloads per output channel. Then, channel by channel, every
+// thread stores its four payloads in shared memory (double-buffered, so one
+// __syncthreads per channel) and each interior thread (6 x 30 per block)
+// sums the +x payload of (x-1, y), the -x payload of (x+1, y), the +y
+// payload of (x, y-1) and the -y payload of (x, y+1), in that order — the
+// term order of `shift_push`. Cells outside the domain emit zero payloads:
+// the zero boundary of `shift_push` (particles leaving the domain die,
+// erosion.cu:281). Each cell's G is read and written only by the thread
+// that owns the cell, so the in-place update has no race.
+//
+// Bound. One round must read S + 4 + C floats and write S + C floats per
+// cell: 52 floats = 208 B per cell-round for fluvial with albedo, 48 = 192 B
+// for debris with albedo, so on the H100 (3.35 TB/s) a 4096^2 round cannot
+// take less than about 1 ms. The kernel is meant to be bound by those bytes;
+// the ring recompute (256 threads for 180 cells) and a few hundred float
+// operations per cell are its compute cost. K-round temporal blocking in
+// shared memory (fewer bytes per round) is left for later work.
+//
+// Arithmetic follows the plain version operation by operation; in
+// particular the Abramowitz-Stegun normal CDF (not erff), the cubic expm1
+// series below |x| < 0.01 with the +-40 exponent clips, exp(-min(x, 88)),
+// the 1e12 cap of the debris per-particle mass and the +-1e30 carried clip.
+// Where JAX calls rsqrt this uses 1/sqrtf. Build without --use_fast_math
+// and with -fmad=false (soillib_tpu_torch/_native.py): the plain version
+// rounds every multiply and add on its own.
+// fminf/fmaxf stand for the NaN-propagating jnp/torch min/max; the two
+// agree on every finite input.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+// Constants are rounded from their double values, as the Python code's
+// float literals are (a decimal-to-float literal can differ in the last bit).
+#define F32(x) ((float)(x))
+
+namespace {
+
+constexpr int NSTATE = 10;
+constexpr int BX = 8;    // tile rows (x), ring included
+constexpr int BY = 32;   // tile cols (y), ring included
+constexpr int NTHREADS = BX * BY;
+
+constexpr double SQRT2_D = 1.4142135623730951;
+constexpr float SQRT2 = (float)SQRT2_D;
+constexpr float INV_SQRT2 = (float)(1.0 / SQRT2_D);
+constexpr float EPS = F32(1e-12);
+constexpr float EPS2 = (float)(1e-12 * 1e-12);
+constexpr float INV_EPS = (float)(1.0 / 1e-12);
+constexpr float OFF_WMIN = F32(0.05);
+constexpr float VMIN = (float)(0.05 * 0.05 / 12.0);
+constexpr float TWELFTH = (float)(1.0 / 12.0);
+constexpr float THIRD = (float)(1.0 / 3.0);
+constexpr float SIXTH = (float)(1.0 / 6.0);
+constexpr float RATE_CLIP = 1e4f;  // exact in float
+
+enum RuleKind { FLUVIAL = 0, DEBRIS = 1 };
+
+}  // namespace
+
+// Scalar parameters of one launch (mirrored by ops/cohort.py
+// `_CohortParams`). r[] holds the rule set's scalars:
+//   fluvial: r0 = tau + nu, r1 = evapRate, r2 = kd
+//   debris:  r0 = rho, r1 = nu, r2 = tau, r3 = g, r4 = kdd, r5 = kds,
+//            r6 = yield stress
+struct CohortParams {
+  int W, H;
+  float Llen, Llen2;
+  float r[8];
+};
+
+namespace {
+
+template <int KIND, bool ALBEDO>
+struct Rules;
+
+template <bool ALBEDO>
+struct Rules<FLUVIAL, ALBEDO> {
+  static constexpr int C = ALBEDO ? 7 : 4;
+  static constexpr int NK = 3;
+  // (water, mass, vel_x, vel_y[, albedo r, g, b])
+  __device__ static constexpr int cls(int c) {
+    return c == 0 ? 0 : (c == 1 ? 1 : (c < 4 ? 2 : 1));
+  }
+};
+
+template <bool ALBEDO>
+struct Rules<DEBRIS, ALBEDO> {
+  static constexpr int C = ALBEDO ? 6 : 3;
+  static constexpr int NK = 2;
+  // (mass, vel_x, vel_y[, albedo r, g, b])
+  __device__ static constexpr int cls(int c) {
+    return (c == 1 || c == 2) ? 1 : 0;
+  }
+};
+
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ float signf(float z) {
+  return z > 0.f ? 1.f : (z < 0.f ? -1.f : z);
+}
+
+// ops/cohort.py _norm_cdf: Abramowitz-Stegun 7.1.26.
+__device__ __forceinline__ float norm_cdf(float z, float gauss) {
+  float x = fabsf(z) * (float)0.7071067811865476;
+  float t = 1.f / (1.f + F32(0.3275911) * x);
+  float poly = t * (F32(0.254829592) + t * (-F32(0.284496736) + t * (
+      F32(1.421413741) + t * (-F32(1.453152027) + t * F32(1.061405429)))));
+  float erf_abs = 1.f - poly * gauss;
+  float erf_z = signf(z) * erf_abs;
+  return 0.5f * (1.f + erf_z);
+}
+
+struct Streams {
+  float Epos, Eneg, cpos, cneg, m2pos, m2neg, Ppos;
+};
+
+// ops/cohort.py _axis_streams (gauss family).
+__device__ __forceinline__ Streams axis_streams(float mu, float m2) {
+  Streams s;
+  float var = fmaxf(m2 - mu * mu, 0.f);
+  bool small = var <= F32(1e-12) * fmaxf(m2, EPS);
+  float sigma = small ? 0.f : sqrtf(var);
+  float sigma_s = small ? 1.f : sigma;
+  float z = clampf(mu / sigma_s, -6.f, 6.f);
+  float gauss = expf(-0.5f * z * z);
+  float phi = gauss * (float)0.3989422804014327;
+  float Phi = clampf(norm_cdf(z, gauss), F32(1e-9), 1.f);
+  float Phn = clampf(1.f - Phi, F32(1e-9), 1.f);
+  s.Epos = small ? fmaxf(mu, 0.f) : fmaxf(mu * Phi + sigma * phi, 0.f);
+  s.Eneg = fmaxf(s.Epos - mu, 0.f);
+  float lam_p = phi / Phi;
+  float lam_n = phi / Phn;
+  s.cpos = small ? mu : mu + sigma * lam_p;
+  s.cneg = small ? mu : mu - sigma * lam_n;
+  float m2p = small ? m2 : mu * mu + var + mu * sigma * lam_p;
+  float m2n = small ? m2 : mu * mu + var - mu * sigma * lam_n;
+  s.Ppos = small ? (mu > 0.f ? 1.f : (mu < 0.f ? 0.f : 0.5f)) : Phi;
+  s.m2pos = fmaxf(m2p, 0.f);
+  s.m2neg = fmaxf(m2n, 0.f);
+  return s;
+}
+
+// ops/transport.py stepsize_expected.
+__device__ __forceinline__ float step_axis(float a) {
+  return a >= INV_SQRT2 ? 0.5f / a : SQRT2 - a;
+}
+
+__device__ __forceinline__ float stepsize_expected(float vx, float vy) {
+  return 0.5f * (step_axis(fabsf(vx)) + step_axis(fabsf(vy)));
+}
+
+// ops/transport.py _expm1_k.
+__device__ __forceinline__ float expm1_k(float x) {
+  if (fabsf(x) < F32(0.01)) return x * (1.f + x * (0.5f + x * SIXTH));
+  return expf(x) - 1.f;
+}
+
+__device__ __forceinline__ float axis_mgf(float a, float beta) {
+  bool tiny_a = a < F32(1e-20);
+  float a_s = tiny_a ? 1.f : a;
+  float u_star = fminf(SQRT2 * a, 1.f);
+  float arg = clampf(beta * u_star / a_s, -40.f, 40.f);
+  bool small_b = fabsf(beta) < F32(1e-12);
+  float beta_s = small_b ? 1.f : beta;
+  float integral = small_b ? u_star : (a_s / beta_s) * expm1_k(arg);
+  float cap = expf(clampf(SQRT2 * beta, -40.f, 40.f));
+  float tail = fmaxf(1.f - SQRT2 * a, 0.f) * cap;
+  float full = integral + tail;
+  return tiny_a ? cap : full;
+}
+
+// ops/transport.py expected_exp_step.
+__device__ __forceinline__ float expected_exp_step(float vx, float vy,
+                                                   float coef) {
+  float beta = 0.5f * coef;
+  return axis_mgf(fabsf(vx), beta) * axis_mgf(fabsf(vy), beta);
+}
+
+// ops/cohort.py _stream_geom (only the direction cosines are used).
+__device__ __forceinline__ void stream_geom(float m2_own, float m2_t,
+                                            float& u_own, float& u_t) {
+  float zo = fmaxf(m2_own, 0.f);
+  float zt = fmaxf(m2_t, 0.f);
+  float s2 = zo + zt;
+  float inv_s = s2 <= EPS2 ? INV_EPS : 1.f / sqrtf(s2);
+  u_own = (zo <= 0.f ? 0.f : sqrtf(zo)) * inv_s;
+  u_t = (zt <= 0.f ? 0.f : sqrtf(zt)) * inv_s;
+}
+
+// ops/cohort.py _trunc_step_moments.
+__device__ __forceinline__ void trunc_step_moments(float m, float h, float a,
+                                                   float& et, float& vt) {
+  float lo = fmaxf(m - h, 0.f);
+  float hi = fminf(m + h, 1.f);
+  float inv_L = 1.f / fmaxf(hi - lo, F32(1e-6));
+  float a_s = fmaxf(a, F32(1e-6));
+  float inv_a = 1.f / a_s;
+  float gs = clampf(SQRT2 * a_s, lo, hi);
+  float w_lin = (gs - lo) * inv_L;
+  float w_cap = (hi - gs) * inv_L;
+  float e_lin = 0.5f * (lo + gs) * inv_a;
+  float e2_lin = (gs * gs + gs * lo + lo * lo) * (inv_a * inv_a) * THIRD;
+  et = w_lin * e_lin + w_cap * SQRT2;
+  float et2 = w_lin * e2_lin + w_cap * 2.f;
+  vt = fmaxf(et2 - et * et, 0.f);
+}
+
+// ops/cohort.py _stream_advance: (vox, voy, m2xo, m2yo, mxyo).
+__device__ __forceinline__ void stream_advance(float w1, float dL, float dvar,
+                                               float ax, float ay, float mx,
+                                               float my, float m2x_,
+                                               float m2y_, float mxy_,
+                                               float* o) {
+  float dax = dL * ax, day = dL * ay;
+  float w2 = w1 * w1;
+  o[0] = w1 * (mx + dax);
+  o[1] = w1 * (my + day);
+  o[2] = w2 * (m2x_ + 2.f * dax * mx + dax * dax + dvar * (ax * ax));
+  o[3] = w2 * (m2y_ + 2.f * day * my + day * day + dvar * (ay * ay));
+  o[4] = w2 * (mxy_ + dax * my + day * mx + dax * day + dvar * (ax * ay));
+}
+
+struct Quadrant {
+  float p_x, gy_out, gx_out, v_gy, v_gx;
+};
+
+__device__ __forceinline__ Quadrant quadrant(float ux_m, float uy_m,
+                                             float mgx, float mgy, float gwx,
+                                             float gwy, float hwx,
+                                             float hwy) {
+  const float tiny = F32(1e-6);
+  Quadrant q;
+  float A = mgy * ux_m - mgx * uy_m;
+  float Wu = gwy * ux_m + gwx * uy_m;
+  q.p_x = clampf(0.5f + A / fmaxf(Wu, tiny), 0.f, 1.f);
+  float c_y = fminf(mgx * (uy_m / ux_m), 1.f);
+  float lo_y = clampf(c_y, mgy - hwy, mgy + hwy);
+  float gy_c = 0.5f * (lo_y + mgy + hwy);
+  q.gy_out = clampf(gy_c - c_y, 0.f, 1.f);
+  float d_y = mgy + hwy - lo_y;
+  q.v_gy = d_y * d_y * TWELFTH;
+  float c_x = fminf(mgy * (ux_m / uy_m), 1.f);
+  float lo_x = clampf(c_x, mgx - hwx, mgx + hwx);
+  float gx_c = 0.5f * (lo_x + mgx + hwx);
+  q.gx_out = clampf(gx_c - c_x, 0.f, 1.f);
+  float d_x = mgx + hwx - lo_x;
+  q.v_gx = d_x * d_x * TWELFTH;
+  return q;
+}
+
+__device__ __forceinline__ float offset_width(float v, float m) {
+  v = clampf(v, VMIN, TWELFTH);
+  float wv = sqrtf(12.f * v);
+  return fmaxf(fminf(wv, 2.f * fminf(m, 1.f - m)), OFF_WMIN);
+}
+
+// The rule set: friction weight w1 and the per-class transit factors.
+template <int KIND, bool ALBEDO>
+__device__ __forceinline__ float rules_eval(const CohortParams& p, float dL,
+                                            float inv, float w,
+                                            float carried0, float ux,
+                                            float uy, float aux3,
+                                            float* facs) {
+  if constexpr (KIND == FLUVIAL) {
+    // models/erosion.py make_fluvial_rules; aux3 = the static
+    // momentum-decay rate.
+    float w1 = 1.f / (1.f + dL * p.r[0]);
+    facs[0] = expf(-fminf(dL * inv * p.r[1], 88.f));
+    facs[1] = expf(-fminf(dL * inv * p.r[2], 88.f));
+    facs[2] = expected_exp_step(ux, uy, aux3);
+    return w1;
+  } else {
+    // models/erosion.py make_debris_rules; aux3 = excess slope.
+    float den = w * p.r[0];
+    bool big = carried0 > den * F32(1e12);
+    float m_pp = big ? F32(1e12) : carried0 / den;
+    float dh = EPS + m_pp;
+    float decay = p.r[1] + p.r[2] / dh;
+    float w1 = 1.f / (1.f + dL * decay);
+    float es = p.r[3] * (aux3 - p.r[6] / dh);
+    float sr = es < 0.f ? p.r[4] : p.r[5];
+    facs[0] = expected_exp_step(
+        ux, uy, clampf(p.Llen * inv * sr * es * inv, -RATE_CLIP, RATE_CLIP));
+    facs[1] = expected_exp_step(ux, uy,
+                                clampf(-p.Llen * decay, -RATE_CLIP, 0.f));
+    return w1;
+  }
+}
+
+// One cell's round: pay[c][d] = payload of output channel c toward
+// d in (+x, -x, +y, -y). ops/cohort.py _round_payloads, default closure.
+template <int KIND, bool ALBEDO>
+__device__ __forceinline__ void round_payloads(
+    const CohortParams& p, const float* stv, const float* auxv,
+    float (*pay)[4]) {
+  using R = Rules<KIND, ALBEDO>;
+  const float Llen = p.Llen;
+  float w = stv[0];
+  float safe_w = fmaxf(w, EPS);
+  float inv_w = 1.f / safe_w;
+  float vbx = stv[1] * inv_w, vby = stv[2] * inv_w;
+  float m2x = stv[3] * inv_w, m2y = stv[4] * inv_w;
+  float mxy = stv[5] * inv_w;
+  float axl = auxv[0], ayl = auxv[1];
+  (void)mxy;
+
+  float srms_sq = m2x + m2y;
+  float sbar = srms_sq <= 0.f ? 0.f : sqrtf(srms_sq);
+  bool alive = (sbar >= EPS) && (w > 0.f) && (auxv[2] > 0.f);
+
+  Streams sx = axis_streams(vbx, m2x);
+  Streams sy = axis_streams(vby, m2y);
+
+  float mfx = clampf(stv[6] * inv_w, 0.f, 1.f);
+  float mfy = clampf(stv[7] * inv_w, 0.f, 1.f);
+  float vfx = stv[8] * inv_w - mfx * mfx;
+  float vfy = stv[9] * inv_w - mfy * mfy;
+  float gwx = offset_width(vfx, mfx);
+  float gwy = offset_width(vfy, mfy);
+
+  const float tiny = F32(1e-6);
+  float uxp_m = fmaxf(sx.cpos, tiny);
+  float uxn_m = fmaxf(-sx.cneg, tiny);
+  float uyp_m = fmaxf(sy.cpos, tiny);
+  float uyn_m = fmaxf(-sy.cneg, tiny);
+  float hwx = 0.5f * gwx, hwy = 0.5f * gwy;
+
+  float mgx_p = 1.f - mfx, mgx_n = mfx;
+  float mgy_p = 1.f - mfy, mgy_n = mfy;
+  Quadrant pp = quadrant(uxp_m, uyp_m, mgx_p, mgy_p, gwx, gwy, hwx, hwy);
+  Quadrant pn = quadrant(uxp_m, uyn_m, mgx_p, mgy_n, gwx, gwy, hwx, hwy);
+  Quadrant np = quadrant(uxn_m, uyp_m, mgx_n, mgy_p, gwx, gwy, hwx, hwy);
+  Quadrant nn = quadrant(uxn_m, uyn_m, mgx_n, mgy_n, gwx, gwy, hwx, hwy);
+
+  float Pxp = sx.Ppos, Pyp = sy.Ppos;
+  float Pxn_ = 1.f - Pxp, Pyn_ = 1.f - Pyp;
+  float a_pp = Pxp * Pyp, a_pn = Pxp * Pyn_;
+  float a_np = Pxn_ * Pyp, a_nn = Pxn_ * Pyn_;
+
+  float q_pp_x = a_pp * pp.p_x, q_pn_x = a_pn * pn.p_x;
+  float q_np_x = a_np * np.p_x, q_nn_x = a_nn * nn.p_x;
+  float q_pp_y = a_pp - q_pp_x, q_pn_y = a_pn - q_pn_x;
+  float q_np_y = a_np - q_np_x, q_nn_y = a_nn - q_nn_x;
+
+  float wxp = q_pp_x + q_pn_x, wxn = q_np_x + q_nn_x;
+  float wyp = q_pp_y + q_np_y, wyn = q_pn_y + q_nn_y;
+
+  float a_, b_;
+  float pay_fy_xp = q_pp_x * (1.f - pp.gy_out) + q_pn_x * pn.gy_out;
+  float pay_fy_xn = q_np_x * (1.f - np.gy_out) + q_nn_x * nn.gy_out;
+  float pay_fx_yp = q_pp_y * (1.f - pp.gx_out) + q_np_y * np.gx_out;
+  float pay_fx_yn = q_pn_y * (1.f - pn.gx_out) + q_nn_y * nn.gx_out;
+  a_ = 1.f - pp.gy_out;
+  b_ = pn.gy_out;
+  float pay_fy2_xp = q_pp_x * (a_ * a_ + pp.v_gy) + q_pn_x * (b_ * b_ + pn.v_gy);
+  a_ = 1.f - np.gy_out;
+  b_ = nn.gy_out;
+  float pay_fy2_xn = q_np_x * (a_ * a_ + np.v_gy) + q_nn_x * (b_ * b_ + nn.v_gy);
+  a_ = 1.f - pp.gx_out;
+  b_ = np.gx_out;
+  float pay_fx2_yp = q_pp_y * (a_ * a_ + pp.v_gx) + q_np_y * (b_ * b_ + np.v_gx);
+  a_ = 1.f - pn.gx_out;
+  b_ = nn.gx_out;
+  float pay_fx2_yn = q_pn_y * (a_ * a_ + pn.v_gx) + q_nn_y * (b_ * b_ + nn.v_gx);
+
+  // Transverse moments per stream (_cond_stream, xmom off).
+  float m2y_xp = fmaxf(m2y, vby * vby), mxy_xp = vby * sx.cpos;
+  float m2y_xn = fmaxf(m2y, vby * vby), mxy_xn = vby * sx.cneg;
+  float m2x_yp = fmaxf(m2x, vbx * vbx), mxy_yp = vbx * sy.cpos;
+  float m2x_yn = fmaxf(m2x, vbx * vbx), mxy_yn = vbx * sy.cneg;
+
+  // Shared rules evaluation at the pooled direction and RMS speed.
+  float ax = sx.Epos + sx.Eneg;
+  float ay = sy.Epos + sy.Eneg;
+  float inv_an = 1.f / sqrtf(fmaxf(ax * ax + ay * ay, EPS2));
+  float ux = ax * inv_an;
+  float uy = ay * inv_an;
+  float dL = stepsize_expected(ux, uy) * Llen;
+  float inv = 1.f / fmaxf(sbar, EPS);
+  float facs[R::NK];
+  float w1 = rules_eval<KIND, ALBEDO>(p, dL, inv, safe_w, stv[NSTATE], ux, uy,
+                                      auxv[3], facs);
+
+  // Pooled offset-conditional step moments.
+  float mty = Pyp * mgy_p + (1.f - Pyp) * mgy_n;
+  float mtx = Pxp * mgx_p + (1.f - Pxp) * mgx_n;
+  float ux_r, uy_r;
+  stream_geom(m2x, m2y, ux_r, uy_r);
+  float et_x, vt_x, et_y, vt_y;
+  trunc_step_moments(mtx, hwx, ux_r, et_x, vt_x);
+  trunc_step_moments(mty, hwy, uy_r, et_y, vt_y);
+  float dL_o = 0.5f * (et_x + et_y) * Llen;
+  float dvar_o = 0.25f * (vt_x + vt_y) * p.Llen2;
+
+  float adv[4][5];
+  stream_advance(w1, dL_o, dvar_o, axl, ayl, sx.cpos, vby, sx.m2pos, m2y_xp,
+                 mxy_xp, adv[0]);
+  stream_advance(w1, dL_o, dvar_o, axl, ayl, sx.cneg, vby, sx.m2neg, m2y_xn,
+                 mxy_xn, adv[1]);
+  stream_advance(w1, dL_o, dvar_o, axl, ayl, vbx, sy.cpos, m2x_yp, sy.m2pos,
+                 mxy_yp, adv[2]);
+  stream_advance(w1, dL_o, dvar_o, axl, ayl, vbx, sy.cneg, m2x_yn, sy.m2neg,
+                 mxy_yn, adv[3]);
+
+  float wa = alive ? w : 0.f;
+  float wd[4] = {wa * wxp, wa * wxn, wa * wyp, wa * wyn};
+#pragma unroll
+  for (int d = 0; d < 4; ++d) pay[0][d] = wd[d];
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {
+#pragma unroll
+    for (int d = 0; d < 4; ++d) pay[1 + q][d] = wd[d] * adv[d][q];
+  }
+  pay[6][0] = 0.f;
+  pay[6][1] = wa * wxn;
+  pay[6][2] = wa * pay_fx_yp;
+  pay[6][3] = wa * pay_fx_yn;
+  pay[7][0] = wa * pay_fy_xp;
+  pay[7][1] = wa * pay_fy_xn;
+  pay[7][2] = 0.f;
+  pay[7][3] = wa * wyn;
+  pay[8][0] = 0.f;
+  pay[8][1] = wa * wxn;
+  pay[8][2] = wa * pay_fx2_yp;
+  pay[8][3] = wa * pay_fx2_yn;
+  pay[9][0] = wa * pay_fy2_xp;
+  pay[9][1] = wa * pay_fy2_xn;
+  pay[9][2] = 0.f;
+  pay[9][3] = wa * wyn;
+
+  float wz[4] = {alive ? wxp : 0.f, alive ? wxn : 0.f, alive ? wyp : 0.f,
+                 alive ? wyn : 0.f};
+#pragma unroll
+  for (int c = 0; c < R::C; ++c) {
+    const int k = R::cls(c);
+    float cv = stv[NSTATE + c];
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      pay[NSTATE + c][d] = clampf(cv * (wz[d] * facs[k]), -F32(1e30), F32(1e30));
+    }
+  }
+}
+
+template <int KIND, bool ALBEDO>
+__global__ void __launch_bounds__(NTHREADS)
+cohort_round_kernel(CohortParams p, const float* __restrict__ st,
+                    const float* __restrict__ aux, float* __restrict__ G,
+                    float* __restrict__ out) {
+  using R = Rules<KIND, ALBEDO>;
+  constexpr int S = NSTATE + R::C;
+  __shared__ float buf[2][4][BX][BY];
+
+  const int tx = threadIdx.x;  // along y
+  const int ty = threadIdx.y;  // along x
+  const int gx = (int)blockIdx.y * (BX - 2) + ty - 1;
+  const int gy = (int)blockIdx.x * (BY - 2) + tx - 1;
+  const int W = p.W, H = p.H;
+  const bool inside = gx >= 0 && gx < W && gy >= 0 && gy < H;
+  const size_t plane = (size_t)W * (size_t)H;
+  const size_t cell = inside ? (size_t)gx * (size_t)H + (size_t)gy : 0;
+
+  float pay[S][4];
+  if (inside) {
+    float stv[S];
+    float auxv[4];
+#pragma unroll
+    for (int c = 0; c < S; ++c) stv[c] = st[c * plane + cell];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) auxv[c] = aux[c * plane + cell];
+    round_payloads<KIND, ALBEDO>(p, stv, auxv, pay);
+  } else {
+#pragma unroll
+    for (int c = 0; c < S; ++c) {
+#pragma unroll
+      for (int d = 0; d < 4; ++d) pay[c][d] = 0.f;
+    }
+  }
+
+  const bool owner = inside && tx >= 1 && tx < BY - 1 && ty >= 1 &&
+                     ty < BX - 1;
+#pragma unroll
+  for (int c = 0; c < S; ++c) {
+    float(*b)[BX][BY] = buf[c & 1];
+#pragma unroll
+    for (int d = 0; d < 4; ++d) b[d][ty][tx] = pay[c][d];
+    __syncthreads();
+    if (owner) {
+      float v = b[0][ty - 1][tx];
+      v = v + b[1][ty + 1][tx];
+      v = v + b[2][ty][tx - 1];
+      v = v + b[3][ty][tx + 1];
+      out[c * plane + cell] = v;
+      if (c >= NSTATE) {
+        float* g = G + (size_t)(c - NSTATE) * plane + cell;
+        *g = *g + v;
+      }
+    }
+  }
+}
+
+template <int KIND, bool ALBEDO>
+cudaError_t launch(const CohortParams& p, const float* st, const float* aux,
+                   float* G, float* out, cudaStream_t stream) {
+  dim3 block(BY, BX);
+  dim3 grid((p.H + BY - 3) / (BY - 2), (p.W + BX - 3) / (BX - 2));
+  cohort_round_kernel<KIND, ALBEDO><<<grid, block, 0, stream>>>(p, st, aux,
+                                                                 G, out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// C entry point (bound with ctypes by ops/cohort.py). kind: 0 fluvial,
+// 1 debris; albedo: 0/1. Returns the CUDA error of the launch (0 on
+// success).
+extern "C" int cohort_round_launch(int kind, int albedo,
+                                   const CohortParams* p, const float* st,
+                                   const float* aux, float* G, float* out,
+                                   cudaStream_t stream) {
+  if (p->W <= 0 || p->H <= 0) return (int)cudaErrorInvalidValue;
+  if (kind == FLUVIAL) {
+    return (int)(albedo ? launch<FLUVIAL, true>(*p, st, aux, G, out, stream)
+                        : launch<FLUVIAL, false>(*p, st, aux, G, out, stream));
+  }
+  if (kind == DEBRIS) {
+    return (int)(albedo ? launch<DEBRIS, true>(*p, st, aux, G, out, stream)
+                        : launch<DEBRIS, false>(*p, st, aux, G, out, stream));
+  }
+  return (int)cudaErrorInvalidValue;
+}

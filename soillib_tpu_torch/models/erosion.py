@@ -1,0 +1,707 @@
+"""Unified erosion model in PyTorch (counterpart of
+`soillib_tpu/models/erosion.py`, the default `transportMethod="field"`).
+
+The terrain is a two-layer state `layers` = (bedrock, sediment) heights,
+stored dimensionless and dimensionalized by scale.z (erosion.hpp:60;
+erosion.cu:441-451). Every multichannel field is channel-first: layers
+(2, W, H), momentum (2, W, H), albedo (3, W, H), gradients (2, W, H).
+
+Per step:
+  1. `transport_fluvial`  — steady-state water/sediment-mass/momentum fields
+  2. `transport_debris`   — steady-state debris-flow mass/momentum fields
+  3. `mass_transfer`      — Eulerian height-field delta
+  4. `mass_creep`         — thermal creep
+  5. apply delta; `layer_merge` for export
+
+Both transports are age-structured cohort solves (ops/cohort.py): on CUDA
+tensors each round is one launch of the hand-written kernel, on CPU
+tensors a plain torch round. Everything else here is elementwise and
+radius-1 stencil work in plain torch.
+
+Numerical quirks of the reference reproduced on purpose (do not "fix"):
+ks/64, kd*1.33, fD/8 (erosion.cu:68-70, 478-480); norm = scale.y
+(erosion.cu:165-166, 372-373); the +-0.25*L transfer clamps
+(erosion.cu:527-528); sediment-before-bedrock erosion, uplift to bedrock
+only (erosion.cu:530-547); creep symmetry (erosion.cu:633-710).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from soillib_tpu_torch.core.halo import NO_HALO
+from soillib_tpu_torch.models.params import ErosionParams
+from soillib_tpu_torch.ops.cohort import ENV_CLOSURE
+from soillib_tpu_torch.ops.stencil import _shift
+from soillib_tpu_torch.ops.transport import expected_exp_step
+
+_EPS = 1e-12
+
+# The smallest normal float32. The JAX package runs with subnormal floats
+# flushed to zero (XLA does so on the CPU and the TPU), so a result that is
+# subnormal reads as 0 in its decisions; torch keeps subnormals on the CPU
+# and the card. The port's decisions on such values (is there albedo mass,
+# is a cell bare, is any carried mass left) compare against this instead of
+# 0 and so decide as the JAX package does on every device. (A sum of
+# squares is > 0 after flushing iff one square is a normal float.)
+_TINY = torch.finfo(torch.float32).tiny
+
+# Exp-rate coefficients fed to `expected_exp_step` are clipped to this
+# magnitude (see the JAX package: at +-1e4 every attenuation is already ~0
+# and every growth already saturates the 1e30 carried-total clamp).
+_RATE_CLIP = 1e4
+
+
+def _sdiv(a: float, t):
+    """a / t for a Python scalar a, as one float32 division. (`a / t`
+    on a tensor computes t.reciprocal() * a, which rounds twice.)"""
+    return torch.full((), a, dtype=t.dtype, device=t.device) / t
+
+
+def _birth_density(W, H, halo=NO_HALO, device="cpu"):
+    """Relative particle-birth density of the reference MC sampler:
+    erosion.cu births particles uniformly over the INSET (W-1)x(H-1) area
+    (erosion.cu:53-58), so interior cells receive W*H/((W-1)*(H-1)) times
+    the nominal density, edge cells half of that, corners a quarter."""
+    x0, y0, Wg, Hg = halo.global_offsets((W, H))
+    gx = x0 + torch.arange(W, device=device)
+    gy = y0 + torch.arange(H, device=device)
+    fx = torch.where((gx == 0) | (gx == Wg - 1), 0.5, 1.0).float() * (
+        Wg / max(Wg - 1.0, 1.0))
+    fy = torch.where((gy == 0) | (gy == Hg - 1), 0.5, 1.0).float() * (
+        Hg / max(Hg - 1.0, 1.0))
+    return fx[:, None] * fy[None, :]
+
+
+def merged_height(layers):
+    """height = bedrock + sediment (dimensionless); layers is (2, W, H)."""
+    return layers[0] + layers[1]
+
+
+def layer_merge(layers):
+    """Ref: erosion.cu:733-757."""
+    return merged_height(layers)
+
+
+def godunov_gradient(height, scale, exit_slope, halo=NO_HALO):
+    """Godunov-style steepest one-sided gradient with exit-slope BC
+    (__glocal, erosion_map.cu:107-159): per axis the backward slope is
+    kept only if the neighbor is lower, the forward one only if it is
+    higher, out-of-bounds neighbors contribute the signed exit slope, and
+    the steeper magnitude wins (backward on ties). Returns (2, W, H)."""
+    h = halo.pad(height, math.nan)
+    sx, sy, sz = float(scale[0]), float(scale[1]), float(scale[2])
+    hn0 = _shift(h, -1, 0, math.nan)
+    hp0 = _shift(h, +1, 0, math.nan)
+    h0n = _shift(h, 0, -1, math.nan)
+    h0p = _shift(h, 0, +1, math.nan)
+
+    def one_axis(hn, hp, s):
+        miss_n = torch.isnan(hn)
+        miss_p = torch.isnan(hp)
+        gn = (h - torch.where(miss_n, h, hn)) * sz / s
+        gn = torch.where(miss_n, exit_slope, torch.clamp(gn, min=0.0))
+        gp = (torch.where(miss_p, h, hp) - h) * sz / s
+        gp = torch.where(miss_p, -exit_slope, torch.clamp(gp, max=0.0))
+        return torch.where(torch.abs(gp) > torch.abs(gn), gp, gn)
+
+    gx = one_axis(hn0, hp0, sx)
+    gy = one_axis(h0n, h0p, sy)
+    return torch.stack([halo.crop(gx), halo.crop(gy)], dim=0)
+
+
+def _len2(x, y):
+    """2-norm of component fields, double-where'd at 0 (for autograd)."""
+    sq = x * x + y * y
+    zero = sq == 0.0
+    return torch.where(zero, 0.0, torch.sqrt(torch.where(zero, 1.0, sq)))
+
+
+def _safe_pow(x, alpha):
+    """x**alpha for x >= 0 with a finite gradient at x == 0."""
+    zero = x == 0.0
+    return torch.where(zero, 0.0, torch.pow(torch.where(zero, 1.0, x), alpha))
+
+
+def _masked_exp(alive, arg):
+    """where(alive, exp(arg), 0) with the argument itself masked."""
+    return torch.where(alive, torch.exp(torch.where(alive, arg, 0.0)), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Age-structured cohort sweep
+# ---------------------------------------------------------------------------
+
+
+def _cohort_state(w0, speed0, carried0):
+    """Initial cohort state channels (ops/cohort.py layout): weight,
+    weighted mean velocity, weighted second velocity moments and cross
+    moment (newborns are velocity-deterministic), sub-cell offset moments
+    of a uniform birth position (mean 1/2, E[f^2] = 1/3), carried totals."""
+    return (w0, w0 * speed0[0], w0 * speed0[1],
+            w0 * speed0[0] * speed0[0],
+            w0 * speed0[1] * speed0[1],
+            w0 * speed0[0] * speed0[1],
+            w0 * 0.5, w0 * 0.5,
+            w0 * (1.0 / 3.0), w0 * (1.0 / 3.0)) + tuple(carried0)
+
+
+def _build_cohort_state(w0, speed, carried0, closure):
+    """Initial cohort state channels (single node; the N-node mixture is
+    a quality closure, not ported yet)."""
+    nnodes = int(getattr(closure, "nodes", 1) or 1) if closure else 1
+    if nnodes > 1:
+        raise NotImplementedError(
+            "CohortClosure(nodes>1) is a quality closure: ROADMAP queue A "
+            "item 7"
+        )
+    return _cohort_state(w0, speed, carried0)
+
+
+def _debris_closure(p):
+    """Effective debris-transport closure (ErosionParams.closureDebris):
+    the default strips the quality knobs (nodes/colors) from `closure`."""
+    cd = getattr(p, "closureDebris", None)
+    if cd == "same":
+        return p.closure
+    if cd is not None:
+        return cd
+    if p.closure is None:
+        return None
+    return dataclasses.replace(p.closure, nodes=1, colors=1)
+
+
+def _run_cohort_colored(halo, w0, speed, carried0, aux, rules, iters,
+                        Llen, closure, tol=0.0):
+    """Cohort solve -> (C, W, H) deposits. Colored birth partitions
+    (`closure.colors` > 1) are a quality closure, not ported yet."""
+    cl = closure or ENV_CLOSURE
+    if int(getattr(cl, "colors", 1) or 1) > 1:
+        raise NotImplementedError(
+            "CohortClosure(colors>1) is a quality closure: ROADMAP queue A "
+            "item 7"
+        )
+    st0 = _build_cohort_state(w0, speed, carried0, cl)
+    return halo.run_cohort(st0, aux, rules, iters, Llen, closure, tol=tol)
+
+
+# ---------------------------------------------------------------------------
+# Fluvial transport
+# ---------------------------------------------------------------------------
+
+
+def _fluvial_terms(
+    layers, rainfall, discharge, momentum, albedo_surface, scale, p,
+    halo=NO_HALO,
+):
+    """Shared source/attenuation terms of the fluvial transport model
+    (erosion.cu:62-96)."""
+    sx, sy, sz = float(scale[0]), float(scale[1]), float(scale[2])
+    A = sx * sy
+    Llen = math.sqrt(sx * sx + sy * sy)
+    dev = layers.device
+
+    rho_w = p.densityWater
+    nu = p.viscosityWater
+    tau = p.bedShearWater
+    g = p.gravity
+    ks = p.suspensionRateFluvial / 64.0   # erosion.cu:68
+    kd = p.depositionRateFluvial * 1.33   # erosion.cu:69
+    fD = p.frictionFactor / 8.0           # erosion.cu:70
+    alpha = p.fluvialExponent
+    R = p.rainfall
+    force = torch.tensor(p.force, dtype=torch.float32, device=dev)
+
+    grad = godunov_gradient(merged_height(layers), scale, p.exitSlope, halo)
+    vel = momentum
+
+    # Trajectory-initial speed (erosion.cu:75-79): normalized by sqrt(|L*v|).
+    speed = -(g * grad) + nu * vel + force[:, None, None]
+    speed = speed / torch.sqrt(
+        torch.clamp(_len2(sx * speed[0], sy * speed[1]), min=_EPS)
+    )[None]
+
+    # Source terms (erosion.cu:83-91).
+    v = _len2(vel[0], vel[1])
+    shear = 0.125 * fD * rho_w * v * v
+    power = _safe_pow(torch.clamp(shear * _len2(grad[0], grad[1]), min=0.0),
+                      alpha)
+    E_m = A * ks * power
+    # rainfall may be a (1, 1) constant field.
+    E_w = torch.broadcast_to(A * R * rainfall, E_m.shape)
+    E_v = A * (-(g * grad) + nu * vel)
+    E_a = E_m[None] * albedo_surface if p.trackAlbedo else None
+
+    return dict(
+        A=A, Llen=Llen, grad=grad, speed=speed, force=force,
+        E_w=E_w, E_m=E_m, E_v=E_v, E_a=E_a,
+        kd=kd, fD=fD, nu=nu, tau=tau, g=g,
+    )
+
+
+def transport_fluvial(
+    layers,
+    rainfall,
+    discharge,
+    mass,
+    momentum,
+    albedo_surface,
+    scale,
+    param: ErosionParams,
+    *,
+    method: str = None,
+    key=None,
+    iterations: int = None,
+    halo=NO_HALO,
+):
+    """Fluvial transport: steady-state water height (discharge), suspended
+    sediment mass, momentum, and transported albedo.
+    Ref: __transport_fluvial + __normalize_fluvial (erosion.cu:29-239).
+
+    Args:
+      layers: (2, W, H) terrain state (bedrock, sediment).
+      rainfall: (W, H) water source field, or a (1, 1) constant.
+      discharge: (W, H) previous water height.
+      mass: (W, H) previous suspended mass (unused; kept for API parity).
+      momentum: (2, W, H) previous momentum field.
+      albedo_surface: (3, W, H) surface albedo (transport color source).
+      scale: (sx, sy, sz).
+      key: unused by the field method (kept for API parity).
+    Returns:
+      (discharge', mass', momentum', albedo_transport').
+    """
+    p = param
+    method = method or p.transportMethod
+    if method in ("field-static", "particles"):
+        raise NotImplementedError(
+            f"transportMethod={method!r} is not ported yet (ROADMAP queue "
+            f"A items 8 and 10); use 'field'"
+        )
+    if method != "field":
+        raise ValueError(f"unknown transport method: {method!r}")
+    t = _fluvial_terms(
+        layers, rainfall, discharge, momentum, albedo_surface, scale, p, halo
+    )
+    # Default rounds = maxage - 2: the MC trajectory loop runs maxage-1
+    # iterations and its first iteration never deposits.
+    iters = iterations or (p.transportIterations or max(p.maxage - 2, 1))
+    Gcf = _fluvial_cohort(t, rainfall, discharge, p, iters, halo)
+
+    G_w, G_m = Gcf[0], Gcf[1]
+    G_vx, G_vy = Gcf[2], Gcf[3]
+    G_a = Gcf[4:7] if Gcf.shape[0] > 4 else None
+
+    # Normalization (erosion.cu:143-187). Fixed v=(1,0) -> norm = scale.y.
+    norm = float(scale[1])
+    A = t["A"]
+    grad = t["grad"]
+    force = t["force"]
+    sv_x = -p.gravity * grad[0] + force[0]
+    sv_y = -p.gravity * grad[1] + force[1]
+    discharge_out = (A * p.rainfall * rainfall + G_w) / norm
+    mass_out = G_m / norm
+    momentum_out = torch.stack(
+        [(A * sv_x + G_vx) / norm, (A * sv_y + G_vy) / norm], dim=0
+    )
+
+    if G_a is None:
+        albedo_out = albedo_surface  # untracked: identity pass-through
+    else:
+        has_mass = (G_m >= _TINY) & torch.any(G_a * G_a >= _TINY, dim=0)
+        albedo_out = torch.where(
+            has_mass[None], G_a / torch.clamp(G_m, min=_EPS)[None],
+            albedo_surface,
+        )
+    return discharge_out, mass_out, momentum_out, albedo_out
+
+
+class FluvialRules:
+    """The fluvial cohort physics callback (models/erosion.py
+    `make_fluvial_rules` in the JAX package). Per-cell inputs ride in
+    `aux`; the static scalars are attributes, which the CUDA kernel
+    receives through `kernel_scalars()`.
+
+    Returns per-CLASS transit factors (water/mass/momentum); `classes`
+    maps the carried channels (water, mass, vel_x, vel_y[, albedo rgb])
+    to those classes; `contractive` declares every factor <= 1."""
+
+    kind = "fluvial"
+
+    def __init__(self, p, Llen, albedo_on=None):
+        self.kd = p.depositionRateFluvial * 1.33   # erosion.cu:69
+        self.nu = p.viscosityWater
+        self.tau = p.bedShearWater
+        self.evap = p.evapRate
+        self.Llen = Llen
+        self.albedo_on = p.trackAlbedo if albedo_on is None else albedo_on
+        # albedo shares the mass attenuation (erosion.cu:111-113).
+        self.classes = (0, 1, 2, 2) + ((1, 1, 1) if self.albedo_on else ())
+        self.contractive = bool(self.evap >= 0.0 and self.kd >= 0.0)
+
+    def __call__(self, dL, inv, w, carried, unit2, aux):
+        ux, uy = unit2
+        rate_v = aux[0]  # static per-cell momentum-decay rate (<= 0)
+        w1 = 1.0 / (1.0 + dL * (self.tau + self.nu))
+        fac_w = torch.exp(-torch.clamp(dL * inv * self.evap, max=88.0))
+        fac_m = torch.exp(-torch.clamp(dL * inv * self.kd, max=88.0))
+        fac_v = expected_exp_step(ux, uy, rate_v)
+        return w1, (fac_w, fac_m, fac_v)
+
+    def kernel_scalars(self):
+        """(tau + nu, evapRate, kd), formed in double as the JAX code
+        forms them; csrc/cohort_round.cu `CohortParams.r`."""
+        return (self.tau + self.nu, self.evap, self.kd)
+
+
+def make_fluvial_rules(p, Llen, albedo_on=None):
+    """The fluvial cohort physics callback (see FluvialRules)."""
+    return FluvialRules(p, Llen, albedo_on)
+
+
+def _fluvial_cohort(t, rainfall, discharge, p, iters, halo=NO_HALO):
+    """Age-structured cohort solve of the fluvial transport — the default
+    field method. Returns (7, W, H) deposits (4 with albedo off)."""
+    speed = t["speed"]
+    Llen = t["Llen"]
+    A = t["A"]
+    accel = t["E_v"] / A + t["force"][:, None, None]
+    rules = make_fluvial_rules(p, Llen)
+
+    W, H = discharge.shape
+    bd = _birth_density(W, H, halo=halo, device=discharge.device)
+    carried0 = [bd * t["E_w"], bd * t["E_m"], bd * t["E_v"][0],
+                bd * t["E_v"][1]]
+    if t["E_a"] is not None:
+        carried0 += [bd * t["E_a"][0], bd * t["E_a"][1], bd * t["E_a"][2]]
+    # Static per-cell momentum-decay rate, hoisted out of the rounds.
+    fD = p.frictionFactor / 8.0
+    rate_v = torch.clamp(
+        _sdiv(-Llen * 0.125 * fD, _EPS + discharge), -_RATE_CLIP, 0.0
+    )
+    aux = (accel[0], accel[1], torch.ones_like(discharge), rate_v)
+    return _run_cohort_colored(halo, bd, speed, carried0, aux, rules,
+                               iters, Llen, p.closure, tol=p.transportTol)
+
+
+# ---------------------------------------------------------------------------
+# Debris transport
+# ---------------------------------------------------------------------------
+
+
+class DebrisRules:
+    """The debris cohort physics callback (models/erosion.py
+    `make_debris_rules` in the JAX package). `rho` = particles born per
+    cell. The rule reads the per-particle carried mass carried[0]/(w rho),
+    capped at 1e12, and returns factors (mass, momentum); `classes` maps
+    (mass, vel_x, vel_y[, albedo rgb]). Not contractive: the suspension
+    factor exceeds 1 above the yield-stress balance."""
+
+    kind = "debris"
+    contractive = False
+
+    def __init__(self, p, Llen, rho, albedo_on=None):
+        self.nu = p.viscosityDebris
+        self.tau = p.bedShearDebris
+        self.g = p.gravity
+        self.kdd = p.depositionRateDebris
+        self.kds = p.suspensionRateDebris
+        self.tau_y = p.yieldStress
+        self.rho = rho
+        self.Llen = Llen
+        self.albedo_on = p.trackAlbedo if albedo_on is None else albedo_on
+        # albedo shares the mass factor (erosion.cu:311-321).
+        self.classes = (0, 1, 1) + ((0, 0, 0) if self.albedo_on else ())
+
+    def __call__(self, dL, inv, w, carried, unit2, aux):
+        ux, uy = unit2
+        excess0 = aux[0]
+        M = carried[0]
+        den = w * self.rho
+        big = M > den * 1e12
+        m_pp = torch.where(big, 1e12, M / torch.where(big, 1.0, den))
+        debrisHeight = _EPS + m_pp
+        decay = self.nu + _sdiv(self.tau, debrisHeight)
+        w1 = 1.0 / (1.0 + dL * decay)
+
+        excessStress = self.g * (excess0 - _sdiv(self.tau_y, debrisHeight))
+        shearRate = torch.where(excessStress < 0.0, self.kdd, self.kds)
+        fac_d = expected_exp_step(
+            ux, uy,
+            torch.clamp(self.Llen * inv * shearRate * excessStress * inv,
+                        -_RATE_CLIP, _RATE_CLIP),
+        )
+        fac_v = expected_exp_step(
+            ux, uy, torch.clamp(-self.Llen * decay, -_RATE_CLIP, 0.0)
+        )
+        return w1, (fac_d, fac_v)
+
+    def kernel_scalars(self):
+        """(rho, nu, tau, g, kdd, kds, yield stress); csrc/cohort_round.cu
+        `CohortParams.r`."""
+        return (self.rho, self.nu, self.tau, self.g, self.kdd, self.kds,
+                self.tau_y)
+
+
+def make_debris_rules(p, Llen, rho, albedo_on=None):
+    """The debris cohort physics callback (see DebrisRules)."""
+    return DebrisRules(p, Llen, rho, albedo_on)
+
+
+def transport_debris(
+    layers,
+    mass,
+    momentum,
+    albedo_surface,
+    scale,
+    param: ErosionParams,
+    *,
+    method: str = None,
+    key=None,
+    iterations: int = None,
+    halo=NO_HALO,
+):
+    """Debris-flow / landslide transport with Bingham-plastic-like
+    rheology. Ref: erosion.cu:245-436.
+
+    Args:
+      layers: (2, W, H); mass: (W, H) previous debris field;
+      momentum: (2, W, H); albedo_surface: (3, W, H).
+    Returns:
+      (mass', momentum', albedo_transport') — channel-first.
+    """
+    p = param
+    method = method or p.transportMethod
+    if method == "particles":
+        raise NotImplementedError(
+            "transportMethod='particles' is not ported yet (ROADMAP queue "
+            "A item 10); use 'field'"
+        )
+    # ("field-static" is a fluvial-only distinction; debris always runs
+    # the cohort rheology.)
+    if method not in ("field", "field-static"):
+        raise ValueError(f"unknown transport method: {method!r}")
+    sx, sy, sz = float(scale[0]), float(scale[1]), float(scale[2])
+    A = sx * sy
+    Llen = math.sqrt(sx * sx + sy * sy)
+
+    theta = p.critSlopeBedrock
+    nu = p.viscosityDebris
+    g = p.gravity
+    kl = p.landslideRateDebris
+
+    grad = godunov_gradient(merged_height(layers), scale, p.exitSlope, halo)
+    vel = momentum
+    speed = -(g * grad) + nu * vel
+    speed = speed / torch.sqrt(
+        torch.clamp(_len2(sx * speed[0], sy * speed[1]), min=_EPS)
+    )[None]
+
+    excess0 = _len2(grad[0], grad[1]) - theta
+    suspend = torch.clamp(kl * excess0, min=0.0)
+    E_d = A * suspend
+    E_v = A * (-(g * grad) + nu * vel)
+    E_a = E_d[None] * albedo_surface if p.trackAlbedo else None
+
+    iters = iterations or (p.transportIterations or max(p.maxage - 2, 1))
+    # The newborn carried mass scales with particle density rho = N/cells
+    # (Q = A*cells/N, erosion.cu:267), so the closure is N-aware.
+    W, H = mass.shape
+    _, _, Wg, Hg = halo.global_offsets((W, H))
+    rho = float(p.nSamples) / float(Wg * Hg)
+    accel = E_v / A
+    rules = make_debris_rules(p, Llen, rho)
+
+    w0 = _birth_density(W, H, halo=halo, device=mass.device)
+    carried0 = [w0 * E_d, w0 * E_v[0], w0 * E_v[1]]
+    if E_a is not None:
+        carried0 += [w0 * E_a[0], w0 * E_a[1], w0 * E_a[2]]
+    aux = (accel[0], accel[1], torch.ones_like(excess0), excess0)
+    Gcf = _run_cohort_colored(halo, w0, speed, carried0, aux, rules,
+                              iters, Llen, _debris_closure(p),
+                              tol=p.transportTol)
+
+    G_d = Gcf[0]
+    G_vx, G_vy = Gcf[1], Gcf[2]
+    G_a = Gcf[3:6] if Gcf.shape[0] > 3 else None
+
+    # Normalization (erosion.cu:353-393): fixed v=(1,0) -> norm = scale.y.
+    norm = float(scale[1])
+    mass_out = G_d / norm
+    momentum_out = torch.stack(
+        [(A * (-p.gravity * grad[0]) + G_vx) / norm,
+         (A * (-p.gravity * grad[1]) + G_vy) / norm], dim=0
+    )
+    if G_a is None:
+        albedo_out = albedo_surface  # untracked: identity pass-through
+    else:
+        has_mass = (G_d >= _TINY) & torch.any(G_a * G_a >= _TINY, dim=0)
+        albedo_out = torch.where(
+            has_mass[None], G_a / torch.clamp(G_d, min=_EPS)[None],
+            albedo_surface,
+        )
+    return mass_out, momentum_out, albedo_out
+
+
+# ---------------------------------------------------------------------------
+# Mass transfer + creep
+# ---------------------------------------------------------------------------
+
+
+def mass_transfer(
+    delta,
+    layers,
+    uplift,
+    discharge,
+    mass,
+    momentum,
+    debris,
+    momentum_debris,
+    albedo_bedrock,
+    albedo_transport_fluvial,
+    albedo_transport_debris,
+    albedo_surface,
+    scale,
+    param: ErosionParams,
+    halo=NO_HALO,
+):
+    """Eulerian height-field update: fluvial suspend/deposit, debris
+    suspend/deposit, uplift — stability-clamped, two-layer bookkeeping,
+    surface-albedo mixing. Ref: __transfer (erosion.cu:453-611).
+
+    Returns (delta', albedo_surface').
+    """
+    p = param
+    sx, sy, sz = float(scale[0]), float(scale[1]), float(scale[2])
+    dt = p.timeStep
+    ku = p.uplift
+    kfs = p.suspensionRateFluvial / 64.0
+    kfd = p.depositionRateFluvial * 1.33
+    fD = p.frictionFactor / 8.0
+    alpha = p.fluvialExponent
+    rho = p.densityWater
+    g = p.gravity
+    tau_y = p.yieldStress
+    kds = p.suspensionRateDebris
+    kdd = p.depositionRateDebris
+    kL = p.landslideRateDebris
+    eps = _EPS
+
+    grad = godunov_gradient(merged_height(layers), scale, p.exitSlope, halo)
+    L = math.sqrt(sx * sx + sy * sy)
+    slope = _len2(grad[0], grad[1])
+
+    # Fluvial erosion (erosion.cu:496-506)
+    v = _len2(momentum[0], momentum[1])
+    shear = 0.125 * fD * rho * v * v
+    power = _safe_pow(torch.clamp(shear * slope, min=0.0), alpha)
+    suspend = kfs * power
+    deposit = kfd * mass
+    uplift_rate = ku * uplift
+
+    # Debris erosion (erosion.cu:508-514)
+    debrisHeight = debris
+    excessSlope = slope - p.critSlopeBedrock
+    shearLandslide = torch.clamp(kL * excessSlope, min=0.0)
+    shearYield = g * (debrisHeight * excessSlope - tau_y)
+    suspendDebris = shearLandslide + kds * torch.clamp(shearYield, min=0.0)
+    depositDebris = torch.minimum(
+        debrisHeight, torch.clamp(-kdd * shearYield, min=0.0))
+
+    # Stability-clamped transfer (erosion.cu:526-528)
+    transfer = dt * (deposit - suspend + depositDebris - suspendDebris)
+    transfer = torch.maximum(transfer, -0.25 * L * slope)
+    transfer = torch.clamp(transfer, max=0.25 * L * 0.3)
+
+    # Two-layer bookkeeping (erosion.cu:530-547): deposition -> sediment,
+    # erosion eats sediment then bedrock, uplift -> bedrock only.
+    d_bed = delta[0] + dt * uplift_rate / sz
+    d_sed = delta[1] + torch.clamp(transfer, min=0.0) / sz
+
+    sed = layers[1]
+    neg = transfer < 0.0
+    limited = torch.maximum(-sed * sz, transfer)  # sediment portion (<= 0)
+    residual = transfer - limited                 # bedrock portion  (<= 0)
+    d_sed = d_sed + torch.where(neg, limited / sz, 0.0)
+    d_bed = d_bed + torch.where(neg, residual / sz, 0.0)
+    transfer_post = torch.where(neg, residual, transfer)
+
+    delta_out = torch.stack([d_bed, d_sed], dim=0)
+
+    # Surface / transport albedo mixing (erosion.cu:549-572).
+    totalHeight = mass + debrisHeight
+    if not p.trackAlbedo:
+        return delta_out, albedo_surface  # untracked: identity
+
+    mixDepth = 1.0
+    wMass = torch.clamp(mass / torch.clamp(totalHeight, min=_EPS), max=1.0)
+    colorTransport = torch.clamp(
+        wMass[None] * albedo_transport_fluvial
+        + (1.0 - wMass[None]) * albedo_transport_debris,
+        max=1.0,
+    )
+    colorSurface = torch.clamp(albedo_surface, max=1.0)
+    wSurf = torch.clamp(sed * sz, max=mixDepth)
+    wTrsp = torch.clamp(transfer_post, min=eps)
+    wmix = torch.clamp(wTrsp / (wTrsp + wSurf), max=1.0)
+    colorMix = wmix[None] * colorTransport + (1.0 - wmix[None]) * colorSurface
+
+    bare = torch.abs(sed) < _TINY
+    depositing = (totalHeight >= _TINY) & (transfer_post > eps)
+    albedo_out = torch.where(
+        bare[None],
+        albedo_bedrock,
+        torch.where(depositing[None], colorMix, albedo_surface),
+    )
+    return delta_out, albedo_out
+
+
+def mass_creep(delta, layers, scale, param: ErosionParams, halo=NO_HALO):
+    """Thermal erosion / hillslope creep: symmetric rate-limited transfer
+    of sediment between 4-neighbors, exactly mass-conservative by
+    symmetry. Ref: __mass_creep (erosion.cu:633-727). Returns delta'."""
+    p = param
+    sx, sy, sz = float(scale[0]), float(scale[1]), float(scale[2])
+    critSlope = p.critSlopeSediment
+
+    bed = layers[0]
+    # Clamp-to-edge for a radius-1 shift reproduces the creep kernel's
+    # clamp-to-self substitution (erosion.cu:655-658).
+    sed = halo.pad(layers[1], "edge")
+    h = (halo.pad(bed, "edge") + sed) * sz
+
+    def pair_transfer(dx, dy, s):
+        """Net gain at each cell from its (+dx, +dy) neighbor (may be <0)."""
+        hn = _shift_self(h, dx, dy)
+        sed_n = _shift_self(sed, dx, dy)
+        gain = torch.clamp(
+            torch.minimum(sed_n * sz, 0.5 * ((hn - h) - critSlope * s)),
+            min=0.0,
+        )
+        loss = torch.clamp(
+            torch.minimum(sed * sz, 0.5 * ((h - hn) - critSlope * s)),
+            min=0.0,
+        )
+        return torch.where(hn > h, gain, -loss)
+
+    t = (
+        pair_transfer(+1, 0, sx)
+        + pair_transfer(-1, 0, sx)
+        + pair_transfer(0, +1, sy)
+        + pair_transfer(0, -1, sy)
+    )
+    d_sed = delta[1] + 0.25 * halo.crop(t) / sz
+    return torch.stack([delta[0], d_sed], dim=0)
+
+
+def _shift_self(h, dx, dy):
+    """Shift with boundary cells replaced by the center value (the creep
+    kernel's oob -> l00 substitution, erosion.cu:655-658)."""
+    W, H = h.shape[0], h.shape[1]
+    shifted = torch.roll(h, shifts=(-dx, -dy), dims=(0, 1))
+    x = torch.arange(W, device=h.device)[:, None] + dx
+    y = torch.arange(H, device=h.device)[None, :] + dy
+    oob = (x < 0) | (x >= W) | (y < 0) | (y >= H)
+    return torch.where(oob, h, shifted)

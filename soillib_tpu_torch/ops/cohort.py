@@ -1,0 +1,662 @@
+"""Age-structured cohort sweep: the plain torch rounds and the CUDA kernel
+path (counterpart of `soillib_tpu/ops/cohort.py`).
+
+The cohort transport (per-cell particle cohorts whose velocity/carried-
+mass state evolves each transit, deposits accumulated on arrival) is a
+nonlinear radius-1 stencil per round. `cohort_round` is one transit:
+`_round_payloads` evaluates the per-cell physics into four directional
+payloads per output channel, `shift_push` moves each payload one cell
+(zero boundary: payloads leaving the domain are dropped, the reference
+particle's `__oob` death, erosion.cu:281), and the carried-channel
+arrivals add into the deposits G.
+
+State layout (channel-first, as in the JAX package):
+  st  = (NSTATE + C, W, H): [w, w*vx, w*vy, w*E[vx^2], w*E[vy^2],
+                             w*E[vx*vy], w*E[fx], w*E[fy],
+                             w*E[fx^2], w*E[fy^2], carried...]
+  aux = (4, W, H): [accel_x, accel_y, domain mask, rules aux]
+  G   = (C, W, H) accumulated arrival deposits.
+
+`rules(dL, inv_speed, w, carried, (ux, uy), aux_tail)` is the physics
+callback; it returns the implicit-Euler friction weight w1 and a tuple of
+per-attenuation-CLASS transit factors; `rules.classes` maps each carried
+channel to its factor class.
+
+Two execution paths, chosen by the tensors' device in `run_cohort`:
+  * CPU tensors: `cohort_advance_reference`, one plain round at a time.
+  * CUDA tensors: `cohort_advance_cuda`, one launch of the hand-written
+    Hopper kernel (csrc/cohort_round.cu) per round. It takes the rule
+    sets this package defines (`rules.kind` "fluvial" or "debris") and
+    raises on anything else.
+Only the default closure is ported (see `CohortClosure`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import os
+
+import torch
+import torch.nn.functional as F
+
+from soillib_tpu_torch.ops.transport import stepsize_expected
+
+_EPS = 1e-12
+
+# Moment channels ahead of the carried totals (see the module docstring).
+NSTATE = 10
+
+# Inferred-width floor for the sub-cell offset distributions.
+_OFF_WMIN = 0.05
+
+# Rounds between two reads of the adaptive exit criterion on the kernel
+# path: the JAX kernel path's pass granularity (K = 16 rounds per pass).
+TOL_CHECK_ROUNDS = 16
+
+_NOT_PORTED = (
+    "only the default CohortClosure (offsets, pooled offstep, gauss "
+    "streams, no xmom/perstream, 1 node, 1 color) is ported; the quality "
+    "closures are ROADMAP queue A item 7"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class CohortClosure:
+    """Closure configuration (hashable; see the JAX package's
+    `CohortClosure` for what each field selects). Only the default is
+    ported: any other value raises `NotImplementedError` where the solve
+    runs."""
+
+    offsets: bool = True
+    offstep: object = True  # True (pooled) | "stream" | False
+    vdist: str = "gauss"
+    xmom: bool = False
+    perstream: bool = False
+    colors: int = 1
+    color_rule: str = "dir"
+    nodes: int = 1
+    node_rule: str = "face"
+
+
+def _env_closure() -> CohortClosure:
+    """Process-default closure from the SOIL_COHORT_* env vars."""
+    _ost = os.environ.get("SOIL_COHORT_OFFSTEP", "1")
+    return CohortClosure(
+        offsets=os.environ.get("SOIL_COHORT_OFFSETS", "1") == "1",
+        offstep="stream" if _ost == "stream" else _ost == "1",
+        vdist=os.environ.get("SOIL_COHORT_VDIST", "gauss"),
+        xmom=os.environ.get("SOIL_COHORT_XMOM", "0") == "1",
+        perstream=os.environ.get("SOIL_COHORT_PERSTREAM", "0") == "1",
+        colors=int(os.environ.get("SOIL_COHORT_COLORS", "1")),
+        color_rule=os.environ.get("SOIL_COHORT_COLOR_RULE", "dir"),
+        nodes=int(os.environ.get("SOIL_COHORT_NODES", "1")),
+        node_rule=os.environ.get("SOIL_COHORT_NODE_RULE", "face"),
+    )
+
+
+ENV_CLOSURE = _env_closure()
+
+
+def _check_closure(closure) -> CohortClosure:
+    """The closure in effect (None -> the env default); raises unless it
+    is the default closure, the only one ported."""
+    cl = closure or ENV_CLOSURE
+    if not (cl.offsets is True and cl.offstep is True
+            and cl.vdist == "gauss" and not cl.xmom and not cl.perstream
+            and int(cl.nodes or 1) == 1 and int(cl.colors or 1) == 1):
+        raise NotImplementedError(f"{_NOT_PORTED}; got {cl!r}")
+    return cl
+
+
+def shift_push(payloads):
+    """Zero-boundary directional push: `payloads` = (toward +x, -x, +y,
+    -y) for one channel; the result at (x, y) sums the +x payload of
+    (x-1, y), the -x payload of (x+1, y), the +y payload of (x, y-1) and
+    the -y payload of (x, y+1), in that order. A `None` payload is a zero
+    that is skipped."""
+
+    def shift_from(a, dx, dy):
+        # F.pad takes last-dim pads first: (y_lo, y_hi, x_lo, x_hi).
+        ap = F.pad(a, (max(0, dy), max(0, -dy), max(0, dx), max(0, -dx)))
+        W, H = a.shape[-2], a.shape[-1]
+        x0, y0 = max(0, -dx), max(0, -dy)
+        return ap[..., x0:x0 + W, y0:y0 + H]
+
+    pxp, pxn, pyp, pyn = payloads
+    terms = []
+    if pxp is not None:
+        terms.append(shift_from(pxp, +1, 0))
+    if pxn is not None:
+        terms.append(shift_from(pxn, -1, 0))
+    if pyp is not None:
+        terms.append(shift_from(pyp, 0, +1))
+    if pyn is not None:
+        terms.append(shift_from(pyn, 0, -1))
+    out = terms[0]
+    for t in terms[1:]:
+        out = out + t
+    return out
+
+
+def _norm_cdf(z, gauss):
+    """Standard-normal CDF via the Abramowitz-Stegun 7.1.26 rational erf
+    approximation (max abs error 1.5e-7), as the JAX package computes it;
+    `torch.erf` would not match it. `gauss` = exp(-z^2/2), shared with
+    the caller's phi."""
+    x = torch.abs(z) * 0.7071067811865476
+    t = 1.0 / (1.0 + 0.3275911 * x)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    erf_abs = 1.0 - poly * gauss
+    erf_z = torch.sign(z) * erf_abs
+    return 0.5 * (1.0 + erf_z)
+
+
+def _axis_streams(mu, m2):
+    """Directional decomposition of a per-axis velocity ensemble with mean
+    mu and raw second moment m2 into its positive- and negative-going
+    streams, under the truncated-Gaussian ("gauss") family.
+
+    Returns (E[v+], E[v-], E[v|v>0], E[v|v<0], E[v^2|v>0], E[v^2|v<0],
+    P(v>0))."""
+    var = torch.clamp(m2 - mu * mu, min=0.0)
+    small = var <= 1e-12 * torch.clamp(m2, min=_EPS)
+    sigma = torch.where(small, 0.0, torch.sqrt(torch.where(small, 1.0, var)))
+
+    sigma_s = torch.where(small, 1.0, sigma)
+    # |z| capped at 6: the minority stream's weight is < 1e-9 there.
+    z = torch.clamp(mu / sigma_s, -6.0, 6.0)
+    gauss = torch.exp(-0.5 * z * z)
+    phi = gauss * 0.3989422804014327
+    Phi = torch.clamp(_norm_cdf(z, gauss), 1e-9, 1.0)
+    Phn = torch.clamp(1.0 - Phi, 1e-9, 1.0)
+
+    Epos = torch.where(small, torch.clamp(mu, min=0.0),
+                       torch.clamp(mu * Phi + sigma * phi, min=0.0))
+    Eneg = torch.clamp(Epos - mu, min=0.0)
+
+    lam_p = phi / Phi
+    lam_n = phi / Phn
+    c_pos = torch.where(small, mu, mu + sigma * lam_p)
+    c_neg = torch.where(small, mu, mu - sigma * lam_n)
+    m2_pos = torch.where(small, m2, mu * mu + var + mu * sigma * lam_p)
+    m2_neg = torch.where(small, m2, mu * mu + var - mu * sigma * lam_n)
+    # Sign probability P(v > 0); the deterministic branch snaps to
+    # {0, 1/2, 1} on sign(mu).
+    P_pos = torch.where(
+        small,
+        torch.where(mu > 0, 1.0, torch.where(mu < 0, 0.0, 0.5)),
+        Phi,
+    )
+    return (Epos, Eneg, c_pos, c_neg, torch.clamp(m2_pos, min=0.0),
+            torch.clamp(m2_neg, min=0.0), P_pos)
+
+
+def _cond_stream(c_own, m2_own, mu_own, mu_t, m2_t):
+    """Transverse moments of a directional stream without the cross-
+    moment regression (xmom off): (E[v_t|S], E[v_t^2|S], E[v_own*v_t|S]),
+    with the m2 floor at mean^2."""
+    mt = mu_t
+    m2t = torch.maximum(m2_t, mt * mt)
+    return mt, m2t, mu_t * c_own
+
+
+def _stream_geom(m2_own, m2_t):
+    """(1/RMS-speed, own-axis direction cosine, transverse cosine) from a
+    stream's raw second moments. The square roots are double-where'd for
+    reverse mode; the primals are the plain values.
+
+    Where the JAX package calls rsqrt, this computes 1/sqrt (here and in
+    `_round_payloads`): the CUDA kernel does the same, and `torch.rsqrt`
+    on the card is an approximation that would part the two by an ulp."""
+    zo = torch.clamp(m2_own, min=0.0)
+    zt = torch.clamp(m2_t, min=0.0)
+    s2 = zo + zt
+    dead = s2 <= _EPS * _EPS
+    inv_s = torch.where(dead, 1.0 / _EPS,
+                        1.0 / torch.sqrt(torch.where(dead, 1.0, s2)))
+    zo_z = zo <= 0.0
+    zt_z = zt <= 0.0
+    u_own = torch.where(zo_z, 0.0,
+                        torch.sqrt(torch.where(zo_z, 1.0, zo))) * inv_s
+    u_t = torch.where(zt_z, 0.0,
+                      torch.sqrt(torch.where(zt_z, 1.0, zt))) * inv_s
+    return inv_s, u_own, u_t
+
+
+def _trunc_step_moments(m, h, a):
+    """(E[T], Var[T]) of the per-axis crossing time T = min(g/a, sqrt2)
+    with the distance-to-wall g ~ U(max(0, m-h), min(1, m+h))."""
+    lo = torch.clamp(m - h, min=0.0)
+    hi = torch.clamp(m + h, max=1.0)
+    inv_L = 1.0 / torch.clamp(hi - lo, min=1e-6)
+    a_s = torch.clamp(a, min=1e-6)
+    inv_a = 1.0 / a_s
+    gs = torch.clamp(1.4142135623730951 * a_s, lo, hi)
+    w_lin = (gs - lo) * inv_L
+    w_cap = (hi - gs) * inv_L
+    e_lin = 0.5 * (lo + gs) * inv_a
+    e2_lin = (gs * gs + gs * lo + lo * lo) * (inv_a * inv_a) * (1.0 / 3.0)
+    et = w_lin * e_lin + w_cap * 1.4142135623730951
+    et2 = w_lin * e2_lin + w_cap * 2.0
+    return et, torch.clamp(et2 - et * et, min=0.0)
+
+
+def _stream_advance(w1, dL, dvar, ax, ay, mx, my, m2x_, m2y_, mxy_):
+    """Post-transit velocity moments of one stream: implicit-Euler
+    friction weight w1 on (v + dL*a), with the crossing-distance variance
+    dvar = Var[dL] injected into the second moments."""
+    dax, day = dL * ax, dL * ay
+    w2 = w1 * w1
+    vox = w1 * (mx + dax)
+    voy = w1 * (my + day)
+    m2xo = w2 * (m2x_ + 2.0 * dax * mx + dax * dax + dvar * (ax * ax))
+    m2yo = w2 * (m2y_ + 2.0 * day * my + day * day + dvar * (ay * ay))
+    mxyo = w2 * (mxy_ + dax * my + day * mx + dax * day + dvar * (ax * ay))
+    return vox, voy, m2xo, m2yo, mxyo
+
+
+def cohort_round(st, G, aux, rules, Llen, closure=None):
+    """One cohort transit: mix -> particle-state step -> push -> deposit.
+    Returns (arrivals = the next state, G + the carried arrivals)."""
+    cl = _check_closure(closure)
+    out = [shift_push(t) for t in _round_payloads(st, aux, rules, Llen, cl)]
+    arrivals = torch.stack(out, dim=0)
+    return arrivals, G + arrivals[NSTATE:]
+
+
+def _round_payloads(st, aux, rules, Llen, cl):
+    """Pre-shift directional payloads of one ensemble's transit round
+    under the default closure (quadrant-offset exit routing with pooled
+    offset-conditional step moments).
+
+    Yields, for each output channel in state-layout order (NSTATE moment
+    channels, then the carried-total deposits), the 4-tuple of payloads
+    pushed toward (+x, -x, +y, -y); `None` is a structural zero."""
+    w = st[0]
+    safe_w = torch.clamp(w, min=_EPS)
+    inv_w = 1.0 / safe_w
+    vbx, vby = st[1] * inv_w, st[2] * inv_w
+    m2x, m2y = st[3] * inv_w, st[4] * inv_w
+    mxy = st[5] * inv_w
+    carried = st[NSTATE:]
+    axl, ayl = aux[0], aux[1]
+
+    # RMS speed (non-cancelling).
+    srms_sq = m2x + m2y
+    szero = srms_sq <= 0.0
+    sbar = torch.where(szero, 0.0,
+                       torch.sqrt(torch.where(szero, 1.0, srms_sq)))
+    alive = (sbar >= _EPS) & (w > 0.0) & (aux[2] > 0.0)
+
+    Exp, Exn, cxp, cxn, m2xp, m2xn, Pxp = _axis_streams(vbx, m2x)
+    Eyp, Eyn, cyp, cyn, m2yp, m2yn, Pyp = _axis_streams(vby, m2y)
+
+    # Quadrant-offset exit routing (see the JAX package's
+    # `_round_payloads` for the model): sign-quadrant weights from the
+    # per-axis count probabilities, offsets as endpoint-anchored
+    # uniforms in distance-to-wall coordinates.
+    mfx = torch.clamp(st[6] * inv_w, 0.0, 1.0)
+    mfy = torch.clamp(st[7] * inv_w, 0.0, 1.0)
+    vfx = st[8] * inv_w - mfx * mfx
+    vfy = st[9] * inv_w - mfy * mfy
+    vmin = _OFF_WMIN * _OFF_WMIN / 12.0
+
+    def width(v, m):
+        v = torch.clamp(v, vmin, 1.0 / 12.0)
+        wv = torch.sqrt(12.0 * v)
+        return torch.clamp(
+            torch.minimum(wv, 2.0 * torch.minimum(m, 1.0 - m)), min=_OFF_WMIN
+        )
+
+    gwx = width(vfx, mfx)
+    gwy = width(vfy, mfy)
+
+    tiny = 1e-6
+    uxp_m = torch.clamp(cxp, min=tiny)
+    uxn_m = torch.clamp(-cxn, min=tiny)
+    uyp_m = torch.clamp(cyp, min=tiny)
+    uyn_m = torch.clamp(-cyn, min=tiny)
+    hwx, hwy = 0.5 * gwx, 0.5 * gwy
+
+    def quadrant(ux_m, uy_m, mgx, mgy):
+        """One sign quadrant: (P(x-exit), transverse-g mean after an
+        x-exit, own-g mean after a y-exit, and their variances)."""
+        A = mgy * ux_m - mgx * uy_m
+        Wu = gwy * ux_m + gwx * uy_m
+        p_x = torch.clamp(0.5 + A / torch.clamp(Wu, min=tiny), 0.0, 1.0)
+        c_y = torch.clamp(mgx * (uy_m / ux_m), max=1.0)
+        lo_y = torch.clamp(c_y, mgy - hwy, mgy + hwy)
+        gy_c = 0.5 * (lo_y + mgy + hwy)
+        gy_out = torch.clamp(gy_c - c_y, 0.0, 1.0)
+        d_y = mgy + hwy - lo_y
+        v_gy = d_y * d_y * (1.0 / 12.0)
+        c_x = torch.clamp(mgy * (ux_m / uy_m), max=1.0)
+        lo_x = torch.clamp(c_x, mgx - hwx, mgx + hwx)
+        gx_c = 0.5 * (lo_x + mgx + hwx)
+        gx_out = torch.clamp(gx_c - c_x, 0.0, 1.0)
+        d_x = mgx + hwx - lo_x
+        v_gx = d_x * d_x * (1.0 / 12.0)
+        return p_x, gy_out, gx_out, v_gy, v_gx
+
+    mgx_p, mgx_n = 1.0 - mfx, mfx
+    mgy_p, mgy_n = 1.0 - mfy, mfy
+    Pxe_pp, gyo_pp, gxo_pp, vy_pp, vx_pp = quadrant(uxp_m, uyp_m, mgx_p, mgy_p)
+    Pxe_pn, gyo_pn, gxo_pn, vy_pn, vx_pn = quadrant(uxp_m, uyn_m, mgx_p, mgy_n)
+    Pxe_np, gyo_np, gxo_np, vy_np, vx_np = quadrant(uxn_m, uyp_m, mgx_n, mgy_p)
+    Pxe_nn, gyo_nn, gxo_nn, vy_nn, vx_nn = quadrant(uxn_m, uyn_m, mgx_n, mgy_n)
+
+    Pxn_, Pyn_ = 1.0 - Pxp, 1.0 - Pyp
+    a_pp, a_pn = Pxp * Pyp, Pxp * Pyn_
+    a_np, a_nn = Pxn_ * Pyp, Pxn_ * Pyn_
+
+    q_pp_x, q_pn_x = a_pp * Pxe_pp, a_pn * Pxe_pn
+    q_np_x, q_nn_x = a_np * Pxe_np, a_nn * Pxe_nn
+    q_pp_y, q_pn_y = a_pp - q_pp_x, a_pn - q_pn_x
+    q_np_y, q_nn_y = a_np - q_np_x, a_nn - q_nn_x
+
+    wxp, wxn = q_pp_x + q_pn_x, q_np_x + q_nn_x
+    wyp, wyn = q_pp_y + q_np_y, q_pn_y + q_nn_y
+
+    # Pushed f-offsets per face (w-normalized payload factors). The
+    # own-axis offset resets to the entry face: 0 for + (a structural
+    # zero, None), 1 for -.
+    def sq(x):
+        return x * x
+
+    pay_fx_xn = wxn
+    pay_fy_xp = q_pp_x * (1.0 - gyo_pp) + q_pn_x * gyo_pn
+    pay_fy_xn = q_np_x * (1.0 - gyo_np) + q_nn_x * gyo_nn
+    pay_fy_yn = wyn
+    pay_fx_yp = q_pp_y * (1.0 - gxo_pp) + q_np_y * gxo_np
+    pay_fx_yn = q_pn_y * (1.0 - gxo_pn) + q_nn_y * gxo_nn
+    pay_fx2_xn = wxn
+    pay_fy2_xp = (q_pp_x * (sq(1.0 - gyo_pp) + vy_pp)
+                  + q_pn_x * (sq(gyo_pn) + vy_pn))
+    pay_fy2_xn = (q_np_x * (sq(1.0 - gyo_np) + vy_np)
+                  + q_nn_x * (sq(gyo_nn) + vy_nn))
+    pay_fy2_yn = wyn
+    pay_fx2_yp = (q_pp_y * (sq(1.0 - gxo_pp) + vx_pp)
+                  + q_np_y * (sq(gxo_np) + vx_np))
+    pay_fx2_yn = (q_pn_y * (sq(1.0 - gxo_pn) + vx_pn)
+                  + q_nn_y * (sq(gxo_nn) + vx_nn))
+
+    # Transverse moments of each stream (unconditional: xmom off).
+    my_xp, m2y_xp, mxy_xp = _cond_stream(cxp, m2xp, vbx, vby, m2y)
+    my_xn, m2y_xn, mxy_xn = _cond_stream(cxn, m2xn, vbx, vby, m2y)
+    mx_yp, m2x_yp, mxy_yp = _cond_stream(cyp, m2yp, vby, vbx, m2x)
+    mx_yn, m2x_yn, mxy_yn = _cond_stream(cyn, m2yn, vby, vbx, m2x)
+
+    # One shared rules evaluation at the pooled dispersion-weighted
+    # direction and pooled RMS speed (perstream off).
+    ax = Exp + Exn
+    ay = Eyp + Eyn
+    inv_an = 1.0 / torch.sqrt(
+        torch.clamp(ax * ax + ay * ay, min=_EPS * _EPS))
+    ux = ax * inv_an
+    uy = ay * inv_an
+    dL = stepsize_expected(ux, uy) * Llen
+    inv = 1.0 / torch.clamp(sbar, min=_EPS)
+    w1, facs = rules(dL, inv, safe_w, carried, (ux, uy), aux[3:])
+
+    # Pooled offset-conditional step moments (offstep=True): one
+    # (dL, Var[dL]) per cell from the count-mixed wall distances replaces
+    # the rules' expected step in the velocity advance.
+    mty = Pyp * mgy_p + (1.0 - Pyp) * mgy_n
+    mtx = Pxp * mgx_p + (1.0 - Pxp) * mgx_n
+    _, ux_r, uy_r = _stream_geom(m2x, m2y)
+    et_x, vt_x = _trunc_step_moments(mtx, hwx, ux_r)
+    et_y, vt_y = _trunc_step_moments(mty, hwy, uy_r)
+    dL_o = 0.5 * (et_x + et_y) * Llen
+    dvar_o = 0.25 * (vt_x + vt_y) * (Llen * Llen)
+
+    adv_xp = _stream_advance(w1, dL_o, dvar_o, axl, ayl,
+                             cxp, my_xp, m2xp, m2y_xp, mxy_xp)
+    adv_xn = _stream_advance(w1, dL_o, dvar_o, axl, ayl,
+                             cxn, my_xn, m2xn, m2y_xn, mxy_xn)
+    adv_yp = _stream_advance(w1, dL_o, dvar_o, axl, ayl,
+                             mx_yp, cyp, m2x_yp, m2yp, mxy_yp)
+    adv_yn = _stream_advance(w1, dL_o, dvar_o, axl, ayl,
+                             mx_yn, cyn, m2x_yn, m2yn, mxy_yn)
+
+    wa = torch.where(alive, w, 0.0)
+    wxp_a, wxn_a = wa * wxp, wa * wxn
+    wyp_a, wyn_a = wa * wyp, wa * wyn
+
+    yield (wxp_a, wxn_a, wyp_a, wyn_a)
+    # adv_* = (vox, voy, m2xo, m2yo, mxyo) per stream, in push order.
+    for q in range(5):
+        yield (wxp_a * adv_xp[q], wxn_a * adv_xn[q],
+               wyp_a * adv_yp[q], wyn_a * adv_yn[q])
+    yield (None, wa * pay_fx_xn, wa * pay_fx_yp, wa * pay_fx_yn)
+    yield (wa * pay_fy_xp, wa * pay_fy_xn, None, wa * pay_fy_yn)
+    yield (None, wa * pay_fx2_xn, wa * pay_fx2_yp, wa * pay_fx2_yn)
+    yield (wa * pay_fy2_xp, wa * pay_fy2_xn, None, wa * pay_fy2_yn)
+
+    # Carried-channel deposits: per-stream per-class attenuated weights
+    # (alive-masked), folded once per class and reused across channels;
+    # the +-1e30 clip after the carried*factor product restores the
+    # carried ceiling (growth factors can saturate to inf, never NaN).
+    classes = getattr(rules, "classes", None)
+    if classes is None:
+        classes = tuple(range(len(carried)))
+    nk = (max(classes) + 1) if len(classes) else 0
+    wxp_z = torch.where(alive, wxp, 0.0)
+    wxn_z = torch.where(alive, wxn, 0.0)
+    wyp_z = torch.where(alive, wyp, 0.0)
+    wyn_z = torch.where(alive, wyn, 0.0)
+    fw = [(wxp_z * facs[k], wxn_z * facs[k], wyp_z * facs[k], wyn_z * facs[k])
+          for k in range(nk)]
+    for c, k in zip(carried, classes):
+        fxp, fxn, fyp, fyn = fw[k]
+        yield (
+            torch.clamp(c * fxp, -1e30, 1e30),
+            torch.clamp(c * fxn, -1e30, 1e30),
+            torch.clamp(c * fyp, -1e30, 1e30),
+            torch.clamp(c * fyn, -1e30, 1e30),
+        )
+
+
+def as_stack(x):
+    """(S, W, H) float32 tensor from a channel sequence or a stack."""
+    if isinstance(x, (list, tuple)):
+        return torch.stack([torch.as_tensor(c, dtype=torch.float32)
+                            for c in x], dim=0)
+    return torch.as_tensor(x)
+
+
+def n_deposits(S, closure=None):
+    """Deposit-channel count C of an S-channel cohort state (one ensemble
+    of NSTATE moments + C carried totals)."""
+    _check_closure(closure)
+    if S <= NSTATE:
+        raise ValueError(
+            f"cohort state of {S} channels is not NSTATE={NSTATE} moments "
+            f"+ carried totals"
+        )
+    return S - NSTATE
+
+
+def carried_live(ST, closure=None):
+    """Per-deposit-channel live carried mass: sum over cells of
+    |carried|, (C,) float32. For contractive rules `carried_live *
+    rounds_remaining` bounds the remaining deposits; for others only
+    live == 0 does (see `tail_converged`)."""
+    n_deposits(ST.shape[0], closure)
+    return torch.sum(torch.abs(ST[NSTATE:]), dim=(1, 2))
+
+
+def deposit_gauge(G):
+    """Per-channel deposit magnitude gauge, (C,) float32."""
+    return torch.sum(torch.abs(G), dim=(1, 2))
+
+
+def tail_converged(live, gauge, remaining_rounds, tol, contractive=False):
+    """True once the solve provably cannot add more than tol of the
+    accumulated deposits. contractive=True (every transit factor <= 1):
+    the live*remaining bound applies. False (the default, required for
+    debris whose suspension factor can exceed 1): exit only at exactly
+    zero live carried mass, which bounds the tail at zero for any
+    physics ("zero" as the JAX package sees it with subnormals flushed:
+    below the smallest normal float). Returns a 0-dim bool tensor on the
+    inputs' device."""
+    if contractive:
+        rem = torch.tensor(float(remaining_rounds), dtype=torch.float32,
+                           device=live.device)
+        tol32 = torch.tensor(tol, dtype=torch.float32, device=live.device)
+        return torch.all(live * rem <= tol32 * gauge)
+    return torch.all(live < torch.finfo(torch.float32).tiny)
+
+
+def cohort_advance_reference(st0, aux, rules, iters, Llen, *, closure=None,
+                             tol=0.0):
+    """Plain torch solve: one zero-boundary push per round (exact, no
+    blocking), on the inputs' device. Returns (advanced state, deposits).
+    `tol` > 0 adds the per-round convergence exit (see carried_live)."""
+    st = as_stack(st0)
+    aux = as_stack(aux)
+    C = n_deposits(st.shape[0], closure)
+    G = torch.zeros((C,) + tuple(st.shape[1:]), dtype=st.dtype,
+                    device=st.device)
+    contractive = bool(getattr(rules, "contractive", False))
+    for i in range(int(iters)):
+        if tol and tol > 0.0 and bool(tail_converged(
+                carried_live(st, closure), deposit_gauge(G),
+                float(iters) - i, tol, contractive)):
+            break
+        st, G = cohort_round(st, G, aux, rules, Llen, closure)
+    return st, G
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel path (csrc/cohort_round.cu)
+# ---------------------------------------------------------------------------
+
+# Kernel launches per rule set: one per round, counted where the wrapper
+# launches the kernel and nowhere else.
+cohort_round_launches = {"fluvial": 0, "debris": 0}
+
+_RULE_KINDS = {"fluvial": 0, "debris": 1}
+
+
+class _CohortParams(ctypes.Structure):
+    """Scalar parameters of one launch; mirrors `CohortParams` in
+    csrc/cohort_round.cu field for field."""
+
+    _fields_ = [
+        ("W", ctypes.c_int),
+        ("H", ctypes.c_int),
+        ("Llen", ctypes.c_float),
+        ("Llen2", ctypes.c_float),
+        ("r", ctypes.c_float * 8),
+    ]
+
+
+def _kernel_params(rules, W, H, Llen):
+    """The launch's parameter struct; the scalar products the JAX code
+    forms in Python double precision (Llen^2, the rules' scalars) are
+    formed here the same way and rounded once."""
+    return _CohortParams(int(W), int(H), float(Llen), float(Llen * Llen),
+                         (ctypes.c_float * 8)(*rules.kernel_scalars()))
+
+
+def _cohort_lib():
+    """The built kernel library (compiled from csrc/ at first use)."""
+    from soillib_tpu_torch import _native
+
+    lib = _native.load("cohort_round")
+    fn = lib.cohort_round_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(_CohortParams),
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def cohort_round_cuda(st, aux, G, rules, Llen, out=None):
+    """One cohort round on the card: the Hopper kernel reads `st` (S, W,
+    H), `aux` (4, W, H) and `G` (C, W, H), writes the next state into
+    `out` (allocated when None) and adds the carried arrivals into `G` in
+    place. Returns `out`."""
+    kind = getattr(rules, "kind", None)
+    if kind not in _RULE_KINDS:
+        raise NotImplementedError(
+            f"the cohort kernel runs the fluvial and debris rule sets of "
+            f"this package only; got rules of kind {kind!r}"
+        )
+    albedo = bool(rules.albedo_on)
+    C = len(rules.classes)
+    S = NSTATE + C
+    for name, t, ch in (("st", st, S), ("aux", aux, 4), ("G", G, C)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dim() != 3 or t.shape[0] != ch:
+            raise ValueError(
+                f"{name} must be ({ch}, W, H) for {kind} rules with "
+                f"albedo {'on' if albedo else 'off'}, got {tuple(t.shape)}"
+            )
+    W, H = st.shape[1], st.shape[2]
+    if aux.shape[1:] != st.shape[1:] or G.shape[1:] != st.shape[1:]:
+        raise ValueError("st, aux and G must share one (W, H) grid")
+    if out is None:
+        out = torch.empty_like(st)
+    elif out.shape != st.shape or not out.is_contiguous() or out is st:
+        raise ValueError("out must be a distinct contiguous tensor like st")
+    params = _kernel_params(rules, W, H, Llen)
+    fn = _cohort_lib()
+    stream = torch.cuda.current_stream(st.device).cuda_stream
+    with torch.cuda.device(st.device):
+        err = fn(_RULE_KINDS[kind], int(albedo), ctypes.byref(params),
+                 st.data_ptr(), aux.data_ptr(), G.data_ptr(), out.data_ptr(),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"cohort_round kernel launch failed: CUDA error "
+                           f"{err}")
+    cohort_round_launches[kind] += 1
+    return out
+
+
+def cohort_advance_cuda(st, aux, rules, iters, Llen, tol=0.0, closure=None):
+    """`iters` cohort rounds on the card, one kernel launch per round with
+    ping-pong state buffers; deposits accumulate in place. `tol` > 0 reads
+    the adaptive exit criterion every TOL_CHECK_ROUNDS rounds (one host
+    read each). Returns (advanced state, deposits)."""
+    _check_closure(closure)
+    st = as_stack(st).contiguous()
+    aux = as_stack(aux).contiguous()
+    C = n_deposits(st.shape[0], closure)
+    G = torch.zeros((C,) + tuple(st.shape[1:]), dtype=torch.float32,
+                    device=st.device)
+    contractive = bool(getattr(rules, "contractive", False))
+    # Ping-pong between two fresh buffers; the caller's state is only read.
+    bufs = [torch.empty_like(st), None]
+    for i in range(int(iters)):
+        if (tol and tol > 0.0 and i % TOL_CHECK_ROUNDS == 0
+                and bool(tail_converged(carried_live(st), deposit_gauge(G),
+                                        float(iters) - i, tol,
+                                        contractive))):
+            break
+        if bufs[i % 2] is None:
+            bufs[i % 2] = torch.empty_like(st)
+        st = cohort_round_cuda(st, aux, G, rules, Llen, out=bufs[i % 2])
+    return st, G
+
+
+def run_cohort(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
+    """Device-dispatched single-device cohort solve -> deposits: CUDA
+    tensors launch the kernel, CPU tensors run the plain rounds."""
+    st = as_stack(st0)
+    if st.device.type == "cuda":
+        return cohort_advance_cuda(st, aux, rules, int(iters), Llen,
+                                   tol=tol, closure=closure)[1]
+    if st.device.type != "cpu":
+        raise ValueError(f"no cohort solve for device {st.device}")
+    return cohort_advance_reference(st, aux, rules, int(iters), Llen,
+                                    closure=closure, tol=tol)[1]

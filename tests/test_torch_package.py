@@ -1,0 +1,102 @@
+"""The PyTorch port's package contract: it imports no JAX, its entry points
+do not fall back to the CPU, what it has not ported raises, and its CUDA
+wrapper refuses what the kernel cannot take."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import soillib_tpu_torch as soil
+from soillib_tpu_torch.convert import state_from_numpy, state_to_numpy
+from soillib_tpu_torch.models.erosion import make_fluvial_rules
+from soillib_tpu_torch.ops import cohort
+
+torch.set_num_threads(1)
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys, soillib_tpu_torch, soillib_tpu_torch.convert\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'soillib_tpu' or m.startswith('soillib_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        soil.ErosionState.zeros((8, 8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        soil.ErosionSim((8, 8), (0.1, 0.1, 4.0))
+    st = soil.ErosionState.zeros((8, 8), device="cpu")
+    assert st.device.type == "cpu"
+
+
+@pytest.mark.parametrize("field,value", [
+    ("offsets", False), ("offstep", "stream"), ("offstep", False),
+    ("vdist", "uniform"), ("xmom", True), ("perstream", True),
+    ("nodes", 2), ("colors", 4),
+])
+def test_non_default_closure_raises(field, value):
+    p = soil.ErosionParams()
+    p.transportIterations = 2
+    p.closure = soil.CohortClosure(**{field: value})
+    p.closureDebris = "same"
+    st = soil.ErosionState.zeros((8, 8), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        soil.erode(st, (0.1, 0.1, 4.0), p)
+
+
+@pytest.mark.parametrize("method", ["field-static", "particles"])
+def test_unported_transport_methods_raise(method):
+    p = soil.ErosionParams()
+    p.transportMethod = method
+    st = soil.ErosionState.zeros((8, 8), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        soil.erode(st, (0.1, 0.1, 4.0), p)
+
+
+def test_cpu_tensors_take_the_plain_rounds():
+    """run_cohort on CPU tensors launches nothing; the kernel wrapper
+    refuses CPU tensors instead of computing on them."""
+    rules = make_fluvial_rules(soil.ErosionParams(), 0.14, albedo_on=False)
+    st = torch.rand((14, 6, 5)) + 0.1
+    aux = torch.ones((4, 6, 5))
+    before = dict(cohort.cohort_round_launches)
+    G = cohort.run_cohort(st, aux, rules, 3, 0.14)
+    assert G.shape == (4, 6, 5) and bool(torch.isfinite(G).all())
+    assert cohort.cohort_round_launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        cohort.cohort_round_cuda(st, aux, torch.zeros((4, 6, 5)), rules,
+                                 0.14)
+
+
+def test_state_round_trip():
+    rng = np.random.default_rng(0)
+    fields = state_to_numpy(soil.ErosionState.zeros((5, 7), device="cpu"))
+    fields = {k: rng.normal(size=v.shape).astype(np.float32)
+              for k, v in fields.items()}
+    back = state_to_numpy(state_from_numpy(fields, "cpu"))
+    for k, v in fields.items():
+        np.testing.assert_array_equal(back[k], v)
+    with pytest.raises(ValueError, match="missing"):
+        state_from_numpy({"layers": fields["layers"]}, "cpu")
+
+
+def test_params_aliases_and_snapshot():
+    p = soil.param_t()
+    p.bedShear = 0.5  # legacy alias of bedShearWater
+    assert p.bedShearWater == 0.5
+    q = soil.ErosionParams.from_frozen(p.freeze())
+    assert q == p and q is not p
+    with pytest.raises(AttributeError):
+        p.notAParameter = 1.0
