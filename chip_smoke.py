@@ -3,14 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from soillib_tpu_torch/csrc, holds each against its
-plain torch version on the card, drives the coupled erosion step at full
-width (4096^2, 32 transport rounds) through the public entry points, and
-checks the results. Every phase raises on failure. The last two lines of
-standard output are a JSON object describing each kernel (its launches on
-the main path, its error against the plain version, its time, the plain
-version's time and its bound) and the final status line
-{"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
+Builds the CUDA kernels from soillib_tpu_torch/csrc (one nvcc per source,
+in parallel), holds each against its plain torch version on the card, and
+drives three paths at full width (4096^2) through the public entry points:
+the coupled erosion step (32 cohort rounds), the DEM workload
+(fill_depressions -> steepest -> accumulate and accumulate_decay through
+the tile kernels -> gradient -> solve_uniform through the sweep kernel,
+8192 rounds) and the erosion step with transportMethod="field-static"
+(the sweep kernel at C = 7). Each path's kernel launches are counted from
+zero just before it runs and read just after; one more step of each
+erosion path is profiled by kernel. Every phase raises on
+failure. The last three lines of standard output are a JSON object
+describing each kernel (its launches on its path, its error against the
+plain version on the path's own inputs, its time, the plain version's
+time and its bound), the card's name and power limit, and the final
+status line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
+device.
 
 Imports torch, numpy and the port; never JAX or the JAX package.
 """
@@ -311,6 +319,7 @@ def kernel_entry(kind, captured, launches):
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": None,
+        "bytes_bound_ms": bytes_ms,
         "shape": [S, W, H],
         "max_abs_err_16_rounds": err16,
         "bytes_per_cell_round": nbytes // (W * H),
@@ -413,10 +422,12 @@ def phase_faithful_depth(n=1024):
     return rounds, ms
 
 
-def phase_breakdown(sim):
-    """Device time of one more main-path step by kernel, from
-    torch.profiler: the cohort kernel's share, the rest (the plain torch
-    glue) and the device's idle share of the step's wall time."""
+def phase_breakdown(sim, kernels=(("cohort_kernel_ms",
+                                   "cohort_round_kernel"),)):
+    """Device time of one more step of `sim` by kernel, from
+    torch.profiler: each (label, kernel name) of `kernels`, the rest (the
+    plain torch glue) and the device's idle share of the step's wall
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -428,7 +439,8 @@ def phase_breakdown(sim):
         sim.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy = cohort_ms = 0.0
+    busy = 0.0
+    split = {label: 0.0 for label, _ in kernels}
     for e in prof.key_averages():
         # Kernel events only: an operator's entry repeats its kernels'
         # device time.
@@ -436,16 +448,367 @@ def phase_breakdown(sim):
             continue
         ms = float(e.self_device_time_total) / 1e3
         busy += ms
-        if "cohort_round_kernel" in e.key:
-            cohort_ms += ms
+        for label, kernel in kernels:
+            if kernel in e.key:
+                split[label] += ms
     if busy <= 0.0:
         log("  profiler recorded no device time: breakdown not measured")
         return None
-    out = {"step_wall_ms": wall_ms, "device_busy_ms": busy,
-           "cohort_kernel_ms": cohort_ms, "other_kernels_ms": busy - cohort_ms,
+    out = {"step_wall_ms": wall_ms, "device_busy_ms": busy, **split,
+           "other_kernels_ms": busy - sum(split.values()),
            "idle_share": max(0.0, 1.0 - busy / wall_ms)}
     log("  " + json.dumps(out))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The DEM flow and transport path, and the field-static erosion step
+# ---------------------------------------------------------------------------
+
+
+def timed(fn):
+    """(fn(), milliseconds) on the host clock between two synchronises."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+class Spy:
+    """While active, records (args, result) of every call of
+    module.name, which is still called through."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def spy(*args):
+            out = real(*args)
+            self.calls.append((args, out))
+            return out
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def zero_counts(*counts):
+    for c in counts:
+        for k in c:
+            c[k] = 0
+
+
+def phase_dem(n=4096, seed=17):
+    """The DEM workload (the reference's dem_process) at n^2 through the
+    public entry points: fill_depressions -> steepest -> accumulate and
+    accumulate_decay (tiled: the tile kernels) -> gradient -> solve_uniform
+    at its default W+H rounds (the sweep kernel, C = 1). Checks shapes,
+    finiteness and the mass balance of unit rain; returns the op times,
+    the launches and each kernel call's inputs and outputs."""
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.ops import graph_tiled as gt
+    from soillib_tpu_torch.ops import sweep
+
+    h = terrain(n, seed) * 400.0       # 600-1000 m, as dem_process's noise
+    scale = (90.0, 90.0)
+    rain = torch.ones((n, n), device="cuda")
+    ops = {}
+    zero_counts(gt.tile_launches, sweep.sweep_launches)
+    with Spy(gt, "local_fp_cuda") as loc, Spy(gt, "trace_cuda") as tr, \
+            Spy(sweep, "transport_advance_cuda") as sw:
+        filled, ops["fill_depressions"] = timed(
+            lambda: soil.fill_depressions(h))
+        flow, ops["steepest"] = timed(lambda: soil.steepest(filled, soil.d8))
+        area, ops["accumulate"] = timed(
+            lambda: soil.accumulate(flow, rain, soil.d8))
+        decayed, ops["accumulate_decay"] = timed(
+            lambda: soil.accumulate_decay(flow, rain, 0.9999, soil.d8))
+        grad, ops["gradient"] = timed(lambda: soil.gradient(filled, scale))
+        velocity = -grad / torch.clamp(
+            torch.linalg.vector_norm(grad, dim=-1, keepdim=True), min=1e-6)
+        evap = torch.full((n, n), 0.001, device="cuda")
+        discharge, ops["solve_uniform"] = timed(
+            lambda: soil.solve_uniform(velocity, rain, evap, scale))
+    launches = {"local": gt.tile_launches["local"],
+                "trace": gt.tile_launches["trace"],
+                "sweep": sweep.sweep_launches["round"]}
+    for name, a in (("filled", filled), ("area", area),
+                    ("decayed", decayed), ("gradient", grad),
+                    ("discharge", discharge)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"DEM path: non-finite values in {name}")
+    if (flow.dtype != torch.int32 or tuple(flow.shape) != (n, n)
+            or tuple(discharge.shape) != (n, n)):
+        raise AssertionError("DEM path: unexpected output types or shapes")
+    roots = flow < 0
+    total = float(area[roots].double().sum())
+    if abs(total - n * n) > 1e-4 * n * n:
+        raise AssertionError(f"DEM path: unit rain reaching the roots "
+                             f"{total} != {n * n} cells")
+    want = {"local": 4, "trace": 2, "sweep": 2 * n}
+    if launches != want:
+        raise AssertionError(f"DEM path launches {launches}, expected {want}")
+    log(f"  op ms {json.dumps({k: round(v, 1) for k, v in ops.items()})}; "
+        f"launches {launches}; roots {int(roots.sum())} receive "
+        f"{total:.0f} of {n * n} cells' rain")
+    return {"ops_ms": ops, "launches": launches, "local": loc.calls,
+            "trace": tr.calls, "sweep": sw.calls, "flow": flow,
+            "rain": rain, "area": area, "decayed": decayed}
+
+
+def bitwise_err(name, got, want):
+    """Max abs difference of got and want; raises unless they are bitwise
+    equal."""
+    import torch
+
+    g = got.contiguous().view(torch.int32)
+    w = want.contiguous().view(torch.int32)
+    diff = float((got.double() - want.double()).abs().max())
+    if not torch.equal(g, w):
+        bad = int((g != w).sum())
+        raise AssertionError(f"{name}: {bad} elements differ from the plain "
+                             f"version (max abs {diff:.3e})")
+    return diff
+
+
+def tile_entries(dem):
+    """The two tile kernels against their plain full-grid fixed points,
+    bitwise, on every input the DEM path gave them (phases 1 and 4 of both
+    accumulations; phase 2 of both), then timed on accumulate's own phase
+    1/2 inputs. Returns their report lines."""
+    from soillib_tpu_torch.ops import graph_tiled as gt
+
+    saved = dict(gt.tile_launches)
+    entries = []
+    for kind in ("local", "trace"):
+        plain_ms, errs = [], []
+        for i, (args, out) in enumerate(dem[kind]):
+            if kind == "local":
+                lslot, src, w, edge, iters = args
+                want, ms = timed(lambda: gt.local_fp_plain(lslot, src, w,
+                                                           edge, iters))
+                errs.append(bitwise_err(f"local push, call {i}", out[0],
+                                        want))
+            else:
+                slot, w, edge, iters = args
+                _, cross = gt._local_slot(*slot.shape, slot, edge)
+                recv = gt._pull(torch_arange_grid(slot), slot, edge, 0)
+                want, ms = timed(lambda: gt.trace_plain(slot, cross, recv, w,
+                                                        edge, iters))
+                errs.append(bitwise_err(f"trace X, call {i}", out[0],
+                                        want[0]))
+                errs.append(bitwise_err(f"trace D, call {i}", out[1],
+                                        want[1]))
+            plain_ms.append(ms)
+            del want
+        args, out = dem[kind][0]
+        rounds = out[-1]
+        W, H = args[0].shape
+        fn = gt.local_fp_cuda if kind == "local" else gt.trace_cuda
+        ms = cuda_ms(lambda: fn(*args), 5)
+        # The function's own work: each edge of the forest carries its
+        # value once, so 16 B per cell (slot and two f32 in, one 4-B word
+        # out, or slot and weight in, X and D out) and a few operations
+        # per cell; the bytes decide. What the Jacobi rounds add, per cell
+        # and round (the push's w * (src + G) and one add per edge, the
+        # trace's one multiply), is reported apart as `iter_ops`.
+        nbytes = 16 * W * H
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        per_cell_round = 3 if kind == "local" else 1
+        iter_ops = per_cell_round * gt.TILE * gt.TILE * float(rounds.sum())
+        entries.append({
+            "name": f"tile_{kind}",
+            "route": "cuda",
+            "source": "soillib_tpu_torch/csrc/tile_accumulate.cu",
+            "replaces": ("soillib_tpu/ops/graph_tiled.py:122" if kind ==
+                         "local" else "soillib_tpu/ops/graph_tiled.py:135"),
+            "launches": dem["launches"][kind],
+            "max_abs_err": max(errs),
+            "ms": ms,
+            "plain_ms": plain_ms[0],
+            "bound_ms": bytes_ms,
+            "bound_by": "bytes",
+            "library_ms": None,
+            "bytes_bound_ms": bytes_ms,
+            "shape": [W, H],
+            "calls_checked_bitwise": len(dem[kind]),
+            "tile_rounds_max": int(rounds.max()),
+            "tile_rounds_mean": float(rounds.float().mean()),
+            "bytes_per_cell": 16,
+            "iter_ops": iter_ops,
+            "iter_ops_ms": iter_ops / PEAK_F32_PER_S * 1e3,
+        })
+        log(f"  tile_{kind}: {len(dem[kind])} calls bitwise equal to plain "
+            f"(max abs err {max(errs):.3e}); {ms:.3f} ms/launch, plain "
+            f"{plain_ms[0]:.1f} ms, byte bound {bytes_ms:.4f} ms; tile "
+            f"rounds max {int(rounds.max())} mean "
+            f"{float(rounds.float().mean()):.1f}")
+    gt.tile_launches.update(saved)
+    return entries
+
+
+def torch_arange_grid(t):
+    import torch
+
+    W, H = t.shape
+    return torch.arange(W * H, dtype=torch.int32,
+                        device=t.device).reshape(W, H)
+
+
+def accumulate_checks(dem, edge=1):
+    """Whole accumulations of the DEM path (tile kernels) against the plain
+    tiled solver and pointer doubling on the card, rtol 1e-5 / atol 1e-5
+    (phase 3's index_add uses atomics)."""
+    from soillib_tpu_torch.ops import graph, graph_tiled as gt
+
+    saved = dict(gt.tile_launches)
+    g, rain = dem["flow"], dem["rain"]
+    slot = graph.graph_to_slots(g, edge)
+    errs = {}
+    for name, decay in (("accumulate", None), ("accumulate_decay", 0.9999)):
+        got = dem["area"] if decay is None else dem["decayed"]
+        w = graph._edge_weights(g, decay, edge)
+        plain = gt.accumulate_tiled(slot, rain, w, edge, tile_solver="plain")
+        errs[f"{name} vs plain tiled"] = check_close(
+            f"{name} vs plain tiled", got, plain, 1e-5, 1e-5)
+        del plain
+        dbl = graph._accumulate_doubling(g, rain, w)
+        errs[f"{name} vs doubling"] = check_close(
+            f"{name} vs doubling", got, dbl, 1e-5, 1e-5)
+        del dbl
+    gt.tile_launches.update(saved)
+    log("  " + "; ".join(f"{k} max abs err {v:.3e}" for k, v in errs.items()))
+    return errs
+
+
+def sweep_entry(name, calls, launches, rounds=16):
+    """The sweep kernel against the plain rounds on a path's own inputs
+    (1 and `rounds` rounds; rtol 2e-6 / atol 1e-5, bitwise expected), then
+    timed: per launch over 16-round runs, and one plain round."""
+    import torch
+
+    from soillib_tpu_torch.ops import sweep
+
+    saved = dict(sweep.sweep_launches)
+    E, att, vx, vy = calls[0][0][1:5]
+    C, W, H = E.shape
+    G0 = torch.zeros_like(E)
+    errs, bitwise = [], True
+    for r in (1, rounds):
+        got = sweep.transport_advance_cuda(G0, E, att, vx, vy, r)
+        want = sweep.transport_advance_reference(G0, E, att, vx, vy, r)
+        errs.append(check_close(f"{name}, {r} rounds", got, want, 2e-6, 1e-5))
+        bitwise = bitwise and torch.equal(got, want)
+        del got, want
+    ms = cuda_ms(lambda: sweep.transport_advance_cuda(G0, E, att, vx, vy,
+                                                      16), 5) / 16
+    G = torch.rand_like(E)
+    plain_ms = cuda_ms(lambda: sweep.upwind_push_cf(att * (E + G), vx, vy), 5)
+    sweep.sweep_launches.update(saved)
+    nbytes = (4 * C + 2) * 4 * W * H
+    # Per cell: four donor weights (2 abs, add, select, divide, select
+    # each); per channel and donor e + g, att *, * weight; 3 adds.
+    ops = (24 + 15 * C) * W * H
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_F32_PER_S * 1e3
+    log(f"  {name} {C}x{W}x{H}: 1 and {rounds} rounds "
+        f"{'bitwise equal' if bitwise else 'within rtol 2e-6'} "
+        f"(max abs err {max(errs):.3e}); {ms:.4f} ms/launch, plain round "
+        f"{plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} ms")
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "soillib_tpu_torch/csrc/transport_sweep.cu",
+        "replaces": "soillib_tpu/ops/sweep.py:92",
+        "launches": launches,
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "bytes_bound_ms": bytes_ms,
+        "shape": [C, W, H],
+        "bitwise": bitwise,
+        "bytes_per_cell_round": nbytes // (W * H),
+    }
+
+
+def solve_uniform_check(n=1024, seed=19):
+    """A whole solve_uniform (W+H rounds) through the sweep kernel against
+    the same solve with the plain rounds on the card, rtol 2e-6 / atol 1e-5
+    of the field's scale."""
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.ops import sweep
+
+    saved = dict(sweep.sweep_launches)
+    h = terrain(n, seed) * 400.0
+    grad = soil.gradient(soil.fill_depressions(h), (90.0, 90.0))
+    velocity = -grad / torch.clamp(
+        torch.linalg.vector_norm(grad, dim=-1, keepdim=True), min=1e-6)
+    rain = torch.ones((n, n), device="cuda")
+    evap = torch.full((n, n), 0.001, device="cuda")
+    got = soil.solve_uniform(velocity, rain, evap, (90.0, 90.0))
+    run = sweep.run_transport
+    sweep.run_transport = sweep.transport_sweep_reference
+    try:
+        want = soil.solve_uniform(velocity, rain, evap, (90.0, 90.0))
+    finally:
+        sweep.run_transport = run
+    sweep.sweep_launches.update(saved)
+    err = check_close(f"solve_uniform {n}^2", got, want, 2e-6,
+                      1e-5 * float(want.abs().max()))
+    log(f"  solve_uniform {n}^2, {2 * n} rounds: kernel vs plain "
+        f"{'bitwise equal' if torch.equal(got, want) else 'within rtol'} "
+        f"(max abs err {err:.3e})")
+    return err
+
+
+def phase_field_static(n=4096, steps=3, iters=32):
+    """ErosionSim at n^2 with transportMethod="field-static": the fluvial
+    transport is the sweep kernel at C = 7 (albedo on), the debris one the
+    cohort kernel. Returns the sim, the step times, launches and the sweep
+    inputs."""
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.ops import cohort, sweep
+
+    p = soil.ErosionParams()
+    p.transportIterations = iters
+    p.trackAlbedo = True
+    p.transportMethod = "field-static"
+    state = soil.ErosionState.zeros((n, n), height=terrain(n, 23))
+    sim = soil.ErosionSim((n, n), (0.1, 0.1, 4.0), p, state=state)
+    zero_counts(sweep.sweep_launches, cohort.cohort_round_launches)
+    times = []
+    with Spy(sweep, "transport_advance_cuda") as sw:
+        for _ in range(steps):
+            _, ms = timed(sim.step)
+            times.append(ms)
+    launches = {"sweep": sweep.sweep_launches["round"],
+                **cohort.cohort_round_launches}
+    finite_state(sim.state, f"{n}^2 field-static erode")
+    want = {"sweep": steps * iters, "fluvial": 0, "debris": steps * iters}
+    if launches != want:
+        raise AssertionError(f"field-static launches {launches}, expected "
+                             f"{want}")
+    if sw.calls[0][0][1].shape[0] != 7:
+        raise AssertionError("field-static sweep is not C = 7")
+    log(f"  step ms {[round(t, 1) for t in times]}; steps 2-3 mean "
+        f"{np.mean(times[1:]):.1f} ms; launches {launches}")
+    return sim, times, launches, sw.calls
 
 
 def main():
@@ -464,11 +827,13 @@ def main():
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"  nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    _native.build("cohort_round")
-    log(f"  built cohort_round in {time.perf_counter() - t0:.1f} s")
-    for line in _native.build_log("cohort_round").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    _native.build()
+    log(f"  built {_native.sources()} in parallel in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in _native.sources():
+        for line in _native.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
     log("phase 2: kernel vs plain on the card")
     phase_kernel_vs_plain()
@@ -496,6 +861,29 @@ def main():
             f"{e['plain_ms']:.2f} ms, bound {e['bound_ms']:.3f} ms "
             f"({e['bound_by']}: {e['bytes_per_cell_round']} B, "
             f"{e['ops_per_cell_round']:.0f} ops per cell-round)")
+
+    log("phase 6: DEM path 4096^2 (fill, steepest, accumulate x2, "
+        "gradient, solve_uniform 8192 rounds)")
+    dem = phase_dem()
+
+    log("phase 7: DEM kernels vs plain on the path's own inputs")
+    entries += tile_entries(dem)
+    accumulate_checks(dem)
+    entries.append(sweep_entry("transport_sweep[C=1]", dem["sweep"],
+                               dem["launches"]["sweep"]))
+    solve_uniform_check()
+    del dem
+
+    log("phase 8: field-static, ErosionSim 4096^2, 32 rounds, 3 steps")
+    fs_sim, _, fs_launches, fs_calls = phase_field_static()
+    entries.append(sweep_entry("transport_sweep[C=7]", fs_calls,
+                               fs_launches["sweep"]))
+    del fs_calls
+    log("where the time goes: one profiled 4096^2 field-static step")
+    phase_breakdown(fs_sim, (("sweep_kernel_ms", "transport_round_kernel"),
+                             ("cohort_kernel_ms", "cohort_round_kernel")))
+    del fs_sim
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -1,19 +1,26 @@
-"""soillib_tpu_torch — the coupled erosion model in PyTorch, with its
-transport kernel written by hand in CUDA for the NVIDIA H100.
+"""soillib_tpu_torch — the coupled erosion model and the DEM flow and
+transport operations in PyTorch, with their kernels written by hand in
+CUDA for the NVIDIA H100.
 
 A port of `soillib_tpu` (the JAX/TPU package, which stays the reference)
-that keeps its public names, its channel-first (C, W, H) layouts, its
-x-major flat index and float32 throughout. It imports torch and numpy,
-never JAX and nothing of `soillib_tpu`.
+that keeps its public names, its channel-first (C, W, H) model layouts,
+its channel-last (W, H, C) ops-layer flow fields, its x-major flat index
+and float32 throughout. It imports torch and numpy, never JAX and nothing
+of `soillib_tpu`.
 
     import soillib_tpu_torch as soil
     state = soil.ErosionState.zeros((1024, 1024), height=h)  # on the card
     state = soil.erode(state, (0.1, 0.1, 4.0), soil.ErosionParams(), steps=8)
 
+    filled = soil.fill_depressions(h)                        # on the card
+    area = soil.accumulate(soil.steepest(filled, soil.d8), 1.0, soil.d8)
+
 Entry points run on the card unless the caller passes `device="cpu"`
-(the plain torch path, used by the tests).
+(the plain torch path, used by the tests); tensor inputs stay on their
+device.
 """
 
+from soillib_tpu_torch.core.grid import D4, D4_SHIFTS, D8, D8_SHIFTS
 from soillib_tpu_torch.models.params import ErosionParams, param_t
 from soillib_tpu_torch.models.erosion import (
     layer_merge,
@@ -29,8 +36,29 @@ from soillib_tpu_torch.models.simulation import (
     make_erode_fn,
 )
 from soillib_tpu_torch.ops.cohort import CohortClosure
+from soillib_tpu_torch.ops.condition import condition, fill_depressions
+from soillib_tpu_torch.ops.graph import (
+    accumulate,
+    accumulate_decay,
+    direction,
+    random_weighted,
+    slope,
+    steepest,
+)
+from soillib_tpu_torch.ops.stencil import gradient, laplacian, negslope, normal
+from soillib_tpu_torch.ops.transport import solve_uniform
+
+# Reference-compatible edge-connectivity enumerators (graph.hpp:11-14).
+d4 = D4
+d8 = D8
 
 __all__ = [
+    "D4", "D8", "d4", "d8", "D4_SHIFTS", "D8_SHIFTS",
+    "gradient", "negslope", "laplacian", "normal",
+    "steepest", "direction", "random_weighted", "slope",
+    "accumulate", "accumulate_decay",
+    "condition", "fill_depressions",
+    "solve_uniform",
     "ErosionParams", "param_t",
     "ErosionState", "ErosionSim", "erode", "make_erode_fn",
     "transport_fluvial", "transport_debris",

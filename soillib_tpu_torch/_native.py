@@ -1,15 +1,18 @@
 """Build and load the package's CUDA kernels (csrc/*.cu) with nvcc.
 
-Each source is compiled on first use into a shared library with a plain C
-interface under `_build/` (listed in .gitignore) and loaded with ctypes.
-The library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt rather than a stale library reused. Nothing is
-built or loaded when the module is imported.
+Each source is compiled into a shared library with a plain C interface
+under `_build/` (listed in .gitignore) and loaded with ctypes. The first
+use of any kernel builds every source that has no library yet, one nvcc
+process each, all started together. The library's file name carries a
+hash of the source and the flags, so an edited source is rebuilt rather
+than a stale library reused. Nothing is built or loaded when the module
+is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -32,6 +35,12 @@ _lock = threading.Lock()
 _libs: dict = {}
 
 
+def sources() -> list:
+    """Names of the kernel sources, csrc/<name>.cu."""
+    return sorted(os.path.splitext(os.path.basename(p))[0]
+                  for p in glob.glob(os.path.join(CSRC, "*.cu")))
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: $CUDA_HOME/bin/nvcc, else nvcc on PATH, else
     /usr/local/cuda/bin/nvcc. Raises when there is none."""
@@ -52,34 +61,55 @@ def _target(name: str) -> str:
     return os.path.join(BUILD, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu into a shared library and return its path.
-    A library already built from the same source and flags is kept. The
-    compiler's output (register and shared-memory use) is written next to
-    the library as `.log`."""
+def build() -> dict:
+    """Compile every csrc/*.cu into a shared library, one nvcc process per
+    source, all at once; returns {name: library path}. Libraries already
+    built from the same source and flags are kept. Each compiler's output
+    (registers and shared memory) is written next to its library as
+    `.log`. Raises, naming every source that failed, after all have
+    finished."""
     os.makedirs(BUILD, exist_ok=True)
-    path = _target(name)
-    if os.path.exists(path):
-        return path
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(f"{path}.log", "w") as log:
-        rc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-                             os.path.join(CSRC, f"{name}.cu")],
-                            stdout=log, stderr=subprocess.STDOUT).returncode
-    if rc != 0:
-        raise RuntimeError(f"kernel build failed: {name} (nvcc exit {rc}, "
-                           f"see {path}.log)")
-    os.replace(tmp, path)
-    return path
+    paths = {name: _target(name) for name in sources()}
+    running = {}
+    try:
+        for name, path in paths.items():
+            if os.path.exists(path):
+                continue
+            tmp = f"{path}.{os.getpid()}.tmp"
+            with open(f"{path}.log", "w") as log:
+                proc = subprocess.Popen(
+                    [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                     os.path.join(CSRC, f"{name}.cu")],
+                    stdout=log, stderr=subprocess.STDOUT)
+            running[name] = (proc, tmp, path)
+        failed = []
+        for name, (proc, tmp, path) in running.items():
+            rc = proc.wait()
+            if rc != 0:
+                failed.append(f"{name} (nvcc exit {rc}, see {path}.log)")
+            else:
+                os.replace(tmp, path)
+    finally:
+        for proc, _, _ in running.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("kernel build failed: " + "; ".join(failed))
+    return paths
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The shared library built from csrc/<name>.cu (building it first
-    if needed), loaded once per process."""
+    """The shared library built from csrc/<name>.cu, loaded once per
+    process. If it is not built yet, every source without a library is
+    built first, in parallel."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(build(name))
+            path = _target(name)
+            if not os.path.exists(path):
+                build()
+            lib = _libs[name] = ctypes.CDLL(path)
         return lib
 
 

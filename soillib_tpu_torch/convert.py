@@ -8,8 +8,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from soillib_tpu_torch.core.device import _device
 from soillib_tpu_torch.models.params import ErosionParams
-from soillib_tpu_torch.models.simulation import ErosionState, _device
+from soillib_tpu_torch.models.simulation import ErosionState
 from soillib_tpu_torch.ops.cohort import CohortClosure
 
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(ErosionState))

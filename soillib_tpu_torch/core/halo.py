@@ -9,7 +9,8 @@ Every radius-r stencil is written against this protocol:
 
 On a single device `NO_HALO` makes both calls the identity, so the ops run
 as plain torch stencils whose internal `_shift` fills supply the boundary
-conditions. Only the single-device form exists so far; the sharded form
+conditions, and `run_transport` / `run_cohort` dispatch the solves by
+device. Only the single-device form exists so far; the sharded form
 (`ShardHalo` over `torch.distributed`) is still to be ported.
 """
 
@@ -17,9 +18,9 @@ from __future__ import annotations
 
 
 class NoHalo:
-    """Single-device: identity pad/crop; the cohort solve runs on one
-    device (the hand-written kernel for CUDA tensors, the plain torch
-    rounds for CPU tensors)."""
+    """Single-device: identity pad/crop; the transport and cohort solves
+    run on one device (the hand-written kernels for CUDA tensors, the
+    plain torch rounds for CPU tensors)."""
 
     def pad(self, arr, fill, radius: int = 1):
         return arr
@@ -30,6 +31,14 @@ class NoHalo:
     def global_offsets(self, block_shape):
         """(x0, y0, W_global, H_global) of this block in the global grid."""
         return 0, 0, int(block_shape[0]), int(block_shape[1])
+
+    def run_transport(self, E, att, vx, vy, iters: int):
+        """`iters` rounds of the upwind transport fixed point
+        G <- PUSH(att * (E + G)) with channel-first E, att (C, W, H) and
+        (W, H) direction components (ops/sweep.py `run_transport`)."""
+        from soillib_tpu_torch.ops import sweep
+
+        return sweep.run_transport(E, att, vx, vy, iters)
 
     def run_cohort(self, st0, aux, rules, iters: int, Llen, closure=None,
                    tol: float = 0.0):

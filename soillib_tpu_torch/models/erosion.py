@@ -1,5 +1,6 @@
 """Unified erosion model in PyTorch (counterpart of
-`soillib_tpu/models/erosion.py`, the default `transportMethod="field"`).
+`soillib_tpu/models/erosion.py`: `transportMethod="field"`, the default,
+and `"field-static"`).
 
 The terrain is a two-layer state `layers` = (bedrock, sediment) heights,
 stored dimensionless and dimensionalized by scale.z (erosion.hpp:60;
@@ -13,10 +14,11 @@ Per step:
   4. `mass_creep`         — thermal creep
   5. apply delta; `layer_merge` for export
 
-Both transports are age-structured cohort solves (ops/cohort.py): on CUDA
-tensors each round is one launch of the hand-written kernel, on CPU
-tensors a plain torch round. Everything else here is elementwise and
-radius-1 stencil work in plain torch.
+Both transports are age-structured cohort solves (ops/cohort.py); with
+"field-static" the fluvial one is the static-attenuation linear sweep
+(ops/sweep.py) instead. On CUDA tensors each round of either is one launch
+of a hand-written kernel, on CPU tensors a plain torch round. Everything
+else here is elementwise and radius-1 stencil work in plain torch.
 
 Numerical quirks of the reference reproduced on purpose (do not "fix"):
 ks/64, kd*1.33, fD/8 (erosion.cu:68-70, 478-480); norm = scale.y
@@ -36,7 +38,10 @@ from soillib_tpu_torch.core.halo import NO_HALO
 from soillib_tpu_torch.models.params import ErosionParams
 from soillib_tpu_torch.ops.cohort import ENV_CLOSURE
 from soillib_tpu_torch.ops.stencil import _shift
-from soillib_tpu_torch.ops.transport import expected_exp_step
+from soillib_tpu_torch.ops.transport import (
+    expected_exp_step,
+    stepsize_center,
+)
 
 _EPS = 1e-12
 
@@ -275,12 +280,12 @@ def transport_fluvial(
     """
     p = param
     method = method or p.transportMethod
-    if method in ("field-static", "particles"):
+    if method == "particles":
         raise NotImplementedError(
-            f"transportMethod={method!r} is not ported yet (ROADMAP queue "
-            f"A items 8 and 10); use 'field'"
+            "transportMethod='particles' is not ported yet (ROADMAP queue "
+            "A item 10); use 'field' or 'field-static'"
         )
-    if method != "field":
+    if method not in ("field", "field-static"):
         raise ValueError(f"unknown transport method: {method!r}")
     t = _fluvial_terms(
         layers, rainfall, discharge, momentum, albedo_surface, scale, p, halo
@@ -288,7 +293,13 @@ def transport_fluvial(
     # Default rounds = maxage - 2: the MC trajectory loop runs maxage-1
     # iterations and its first iteration never deposits.
     iters = iterations or (p.transportIterations or max(p.maxage - 2, 1))
-    Gcf = _fluvial_cohort(t, rainfall, discharge, p, iters, halo)
+    if method == "field":
+        Gcf = _fluvial_cohort(t, rainfall, discharge, p, iters, halo)
+    else:
+        # Static-attenuation linear solve: fast, but blind to the
+        # trajectory velocity evolution (the JAX package's
+        # benchmarks/parity.py: noise-terrain discharge corr 0.19 vs 0.99).
+        Gcf = _fluvial_field(t, discharge, p, iters, halo)
 
     G_w, G_m = Gcf[0], Gcf[1]
     G_vx, G_vy = Gcf[2], Gcf[3]
@@ -384,6 +395,40 @@ def _fluvial_cohort(t, rainfall, discharge, p, iters, halo=NO_HALO):
     aux = (accel[0], accel[1], torch.ones_like(discharge), rate_v)
     return _run_cohort_colored(halo, bd, speed, carried0, aux, rules,
                                iters, Llen, p.closure, tol=p.transportTol)
+
+
+def _fluvial_field(t, discharge, p, iters, halo=NO_HALO):
+    """Deterministic upwind fixed point of the fluvial transport operator
+    (`transportMethod="field-static"`). Returns the flux tensor channel-
+    first, (7, W, H) = (water, mass, vel_x, vel_y, albedo rgb) — 4 with
+    albedo off — solved by `halo.run_transport` (the CUDA sweep on the
+    card)."""
+    speed = t["speed"]
+    v_norm = _len2(speed[0], speed[1])
+    alive = v_norm >= _EPS
+    inv = 1.0 / torch.clamp(v_norm, min=_EPS)
+    vx, vy = speed[0] * inv, speed[1] * inv
+
+    step = stepsize_center(vx, vy)
+    dL = step * t["Llen"]
+    ds = dL * inv
+
+    att_m = _masked_exp(alive, -ds * t["kd"])
+    att_w = _masked_exp(alive, -ds * p.evapRate)
+    att_v = _masked_exp(alive, -dL * 0.125 * t["fD"] / (_EPS + discharge))
+
+    # Emissions carry the reference sampler's birth-density quirk; the
+    # A*source terms of the normalize pass stay nominal (erosion.cu:163).
+    bd = _birth_density(*t["E_w"].shape, halo=halo,
+                        device=discharge.device)[None]
+    parts = [t["E_w"][None], t["E_m"][None], t["E_v"]]
+    atts = [att_w, att_m, att_v, att_v]
+    if t["E_a"] is not None:
+        parts.append(t["E_a"])
+        atts += [att_m, att_m, att_m]
+    E = bd * torch.cat(parts, dim=0)
+    att = torch.stack(atts, dim=0)
+    return halo.run_transport(E, att, vx, vy, iters)
 
 
 # ---------------------------------------------------------------------------

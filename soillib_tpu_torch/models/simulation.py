@@ -21,6 +21,7 @@ import dataclasses
 
 import torch
 
+from soillib_tpu_torch.core.device import _device
 from soillib_tpu_torch.core.halo import NO_HALO
 from soillib_tpu_torch.models.erosion import (
     mass_creep,
@@ -29,17 +30,6 @@ from soillib_tpu_torch.models.erosion import (
     transport_fluvial,
 )
 from soillib_tpu_torch.models.params import ErosionParams
-
-
-def _device(device) -> torch.device:
-    """The requested device; a CUDA device without a GPU raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain torch path on the CPU"
-        )
-    return dev
 
 
 @dataclasses.dataclass(frozen=True)

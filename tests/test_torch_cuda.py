@@ -1,18 +1,20 @@
-"""The CUDA cohort kernel (soillib_tpu_torch/csrc/cohort_round.cu) against
-the port's plain torch rounds on the card. This file imports no JAX, so it
-runs where the card is:
+"""The port's CUDA kernels (soillib_tpu_torch/csrc/*.cu) against their
+plain torch versions on the card. This file imports no JAX, so it runs
+where the card is:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 (`--noconftest` because tests/conftest.py configures JAX for the CPU
 suite). Every test carries the `cuda` marker and skips without a CUDA
-device: the kernel has no CPU mode.
+device: the kernels have no CPU mode.
 
-`cohort_arrays` is the JAX kernel tests' seeded recipe (tests/test_sweep.py
-`_cohort_problem`) and `plain_exit_round` the adaptive-exit probe; both are
-shared with tests/test_torch_cohort.py. Tolerances are the JAX package's
-kernel-vs-reference bars: one round rtol 2e-6 / atol 1e-5, several rounds
-rtol 2e-5 / atol 1e-5 on the deposits.
+Cohort kernel: `cohort_arrays` is the JAX kernel tests' seeded recipe
+(tests/test_sweep.py `_cohort_problem`) and `plain_exit_round` the
+adaptive-exit probe; both are shared with tests/test_torch_cohort.py.
+Tolerances are the JAX package's kernel-vs-reference bars: one round rtol
+2e-6 / atol 1e-5, several rounds rtol 2e-5 / atol 1e-5 on the deposits.
+Sweep and tile kernels: bitwise against their plain versions; whole tiled
+accumulations at rtol 1e-5 (phase 3's index_add uses atomics).
 """
 
 import math
@@ -21,9 +23,11 @@ import numpy as np
 import pytest
 import torch
 
+import soillib_tpu_torch as soil
 from soillib_tpu_torch.models import erosion
 from soillib_tpu_torch.models.params import ErosionParams
-from soillib_tpu_torch.ops import cohort
+from soillib_tpu_torch.ops import cohort, graph, sweep
+from soillib_tpu_torch.ops import graph_tiled as gt
 
 LLEN = math.sqrt(0.02)  # cell diagonal at scale (0.1, 0.1)
 TOL = 1e-6
@@ -150,3 +154,168 @@ def test_kernel_adaptive_exit_on_card(mode):
         f"adaptive deposits vs plain: max abs err {float(err.max()):.3e}")
     _, g_fix = cohort.cohort_advance_cuda(st, aux, tr, iters, LLEN)
     _close(g_k, g_fix, 2e-6, 1e-6, "adaptive vs fixed depth")
+
+
+# ---------------------------------------------------------------------------
+# The transport sweep (csrc/transport_sweep.cu) and the tile kernels of the
+# tiled accumulation (csrc/tile_accumulate.cu): bitwise against their plain
+# versions (the kernels are built with -fmad=false and repeat the plain
+# arithmetic in its order; a tile converges exactly).
+# ---------------------------------------------------------------------------
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+def sweep_arrays(C, W, H, seed=0):
+    """Seeded sweep inputs (E, att, vx, vy) on the card; a few dead cells
+    (zero direction) included."""
+    rng = np.random.default_rng(seed)
+    E = np.abs(rng.normal(size=(C, W, H)))
+    att = rng.uniform(0.3, 0.99, size=(C, W, H))
+    d = rng.normal(size=(2, W, H))
+    d[:, ::9, ::7] = 0.0
+    n = np.maximum(np.sqrt(d[0] ** 2 + d[1] ** 2), 1e-30)
+    return [torch.from_numpy(a.astype(np.float32)).cuda()
+            for a in (E, att, d[0] / n, d[1] / n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 4, 7, 13])
+@pytest.mark.parametrize("iters", [1, 16])
+def test_sweep_kernel_matches_plain_on_card(C, iters):
+    """1 and 16 rounds, C up to 13 (past the JAX kernel's cap), a grid of
+    several ragged blocks; one launch counted per round."""
+    _needs_card()
+    E, att, vx, vy = sweep_arrays(C, 75, 61, seed=C)
+    G0 = torch.rand((C, 75, 61), device="cuda")
+    n0 = sweep.sweep_launches["round"]
+    got = sweep.transport_advance(G0, E, att, vx, vy, iters)
+    assert sweep.sweep_launches["round"] == n0 + iters
+    want = sweep.transport_advance_reference(G0, E, att, vx, vy, iters)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_sweep_autograd_on_card():
+    """run_transport on the card goes through the autograd Function: the
+    gradient (kernel forward, checkpointed plain backward) equals the plain
+    rounds' own autograd gradient."""
+    _needs_card()
+    E, att, vx, vy = sweep_arrays(3, 24, 24, seed=6)
+    ins = [t.clone().requires_grad_(True) for t in (E, att, vx, vy)]
+    out = sweep.run_transport(*ins, 37)
+    (out * out).sum().backward()
+    ref = [t.clone().requires_grad_(True) for t in (E, att, vx, vy)]
+    want = sweep.transport_sweep_reference(*ref, 37)
+    (want * want).sum().backward()
+    np.testing.assert_array_equal(out.detach().cpu().numpy(),
+                                  want.detach().cpu().numpy())
+    for a, b in zip(ins, ref):
+        _close(a.grad, b.grad, 1e-5, 1e-5, "gradient")
+
+
+def terrain_slots(W, H, d8, seed=0):
+    """Slot graph of a seeded rough terrain's steepest descent (numpy
+    ridges + noise), by the port's own ops on the card."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(0, 6, W)[:, None]
+    y = np.linspace(0, 5, H)[None, :]
+    h = np.sin(x) * np.cos(y) + 0.3 * rng.normal(size=(W, H))
+    h = torch.from_numpy(h.astype(np.float32)).cuda()
+    edge = 1 if d8 else 0
+    return graph.graph_to_slots(graph.steepest(h, edge), edge)
+
+
+def serpentine_slots(W, H):
+    """A D4 slot graph whose first 128^2 tile is one serpentine path of
+    128^2 cells (the worst case in-tile path), leaving the tile at its
+    last cell; every other cell flows +x, and the last row is roots."""
+    T = 128
+    s = np.full((W, H), 3, np.int32)          # +x
+    s[-1, :] = -1
+    for x in range(min(T, W)):
+        if x % 2 == 0:
+            s[x, :T - 1] = 2                   # +y
+        else:
+            s[x, 1:T] = 1                      # -y
+        s[x, T - 1 if x % 2 == 0 else 0] = 3   # down to the next row
+    return torch.from_numpy(s).cuda()
+
+
+SLOT_CASES = [("terrain-d4", 300, 260), ("terrain-d8", 300, 260),
+              ("terrain-d8", 100, 90), ("serpentine", 200, 140)]
+
+
+def _slots(case, W, H):
+    if case == "serpentine":
+        return serpentine_slots(W, H), 0
+    d8 = case.endswith("d8")
+    return terrain_slots(W, H, d8, seed=W), int(d8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,W,H", SLOT_CASES)
+def test_tile_kernels_match_plain_on_card(case, W, H):
+    """Phases 1/4 (local push) and 2 (trace), bitwise against the plain
+    full-grid fixed points on the same inputs, on ragged grids and on a
+    serpentine path through a whole tile."""
+    _needs_card()
+    slot, edge = _slots(case, W, H)
+    lslot, cross = gt._local_slot(W, H, slot, edge)
+    n = torch.arange(W * H, dtype=torch.int32, device="cuda").reshape(W, H)
+    recv = gt._pull(n, slot, edge, 0)
+    rng = np.random.default_rng(1)
+    src = torch.from_numpy(rng.uniform(0.5, 2.0, (W, H)).astype(
+        np.float32)).cuda()
+    w = torch.from_numpy(rng.uniform(0.8, 1.0, (W, H)).astype(
+        np.float32)).cuda()
+    if case == "serpentine":
+        # Unit weights: with w < 1 the far upstream terms fall below an
+        # ulp and the tile settles bitwise long before the path's end.
+        w = torch.ones_like(w)
+    iters = gt.TILE ** 2
+    n0 = dict(gt.tile_launches)
+    G, rounds = gt.local_fp_cuda(lslot.contiguous(), src, w, edge, iters)
+    X, D, trounds = gt.trace_cuda(slot.contiguous(), w, edge, iters)
+    assert gt.tile_launches == {"local": n0["local"] + 1,
+                                "trace": n0["trace"] + 1}
+    G_p = gt.local_fp_plain(lslot, src, w, edge, iters)
+    X_p, D_p = gt.trace_plain(slot, cross, recv, w, edge, iters)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(G.cpu().numpy(), G_p.cpu().numpy())
+    np.testing.assert_array_equal(X.cpu().numpy(), X_p.cpu().numpy())
+    np.testing.assert_array_equal(D.cpu().numpy(), D_p.cpu().numpy())
+    if case == "serpentine":
+        # 128^2 - 1 edges on the path: 128^2 - 1 rounds to settle, one
+        # more to see it settled, which is also the cap.
+        assert int(rounds[0]) == iters and int(trounds[0]) == iters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,W,H", SLOT_CASES)
+def test_accumulate_on_card_matches_plain_and_doubling(case, W, H):
+    """The whole tiled accumulation through the kernels (the default for
+    CUDA tensors) against the plain tiled solver and pointer doubling, at
+    rtol 1e-5 (phase 3's index_add uses atomics)."""
+    _needs_card()
+    slot, edge = _slots(case, W, H)
+    n = torch.arange(W * H, dtype=torch.int32, device="cuda").reshape(W, H)
+    g = torch.where(slot < 0, -1, gt._pull(n, slot, edge, 0))
+    rain = torch.ones((W, H), device="cuda")
+    for decay in (None, 0.9):
+        w = graph._edge_weights(g, decay, edge)
+        got = gt.accumulate_tiled(slot, rain, w, edge)
+        plain = gt.accumulate_tiled(slot, rain, w, edge, tile_solver="plain")
+        dbl = graph._accumulate_doubling(g, rain, w)
+        _close(got, plain, 1e-5, 1e-5, f"plain tiled, decay {decay}")
+        _close(got, dbl, 1e-5, 1e-5, f"doubling, decay {decay}")
+    # The public entry picks the kernels for a CUDA graph.
+    n0 = gt.tile_launches["local"]
+    area = soil.accumulate(g, 1.0, edge)
+    assert gt.tile_launches["local"] > n0
+    roots = g < 0
+    assert abs(float(area[roots].double().sum()) - W * H) <= 1e-4 * W * H
