@@ -5,14 +5,18 @@
 
 Builds the CUDA kernels from soillib_tpu_torch/csrc (one nvcc per source,
 in parallel), holds each against its plain torch version on the card, and
-drives three paths at full width (4096^2) through the public entry points:
-the coupled erosion step (32 cohort rounds), the DEM workload
-(fill_depressions -> steepest -> accumulate and accumulate_decay through
-the tile kernels -> gradient -> solve_uniform through the sweep kernel,
-8192 rounds) and the erosion step with transportMethod="field-static"
-(the sweep kernel at C = 7). Each path's kernel launches are counted from
-zero just before it runs and read just after; one more step of each
-erosion path is profiled by kernel. Every phase raises on
+drives these paths through the public entry points, at full width (4096^2)
+unless stated: the coupled erosion step (32 cohort rounds), the DEM
+workload (fill_depressions -> steepest -> accumulate and accumulate_decay
+through the tile kernels -> gradient -> solve_uniform through the sweep
+kernel, 8192 rounds), the erosion step with transportMethod="field-static"
+(the sweep kernel at C = 7), the fractal noise, the headline bench
+(`python -m soillib_tpu_torch.bench` at 32 rounds and `auto`, which runs
+the FP32 probe kernel), the flagship example at 1024^2 and the quality
+closure CohortClosure(nodes=4, colors=8) (the cohort kernel with
+NODES=4, once per color group and round). Each path's kernel launches
+are counted from zero just before it runs and read just after; one more
+step of each erosion path is profiled by kernel. Every phase raises on
 failure. The last three lines of standard output are a JSON object
 describing each kernel (its launches on its path, its error against the
 plain version on the path's own inputs, its time, the plain version's
@@ -27,24 +31,19 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
 
 import numpy as np
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and float32
-# rate outside the tensor cores.
+# Published H100 SXM HBM bandwidth (NVIDIA data sheet).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-
-# The cohort round's elementwise operations, counted per output element.
-_POINTWISE = {
-    "abs", "add", "bitwise_and", "clamp", "clamp_max", "clamp_min", "div",
-    "eq", "exp", "ge", "gt", "le", "lt", "maximum", "minimum", "mul", "ne",
-    "neg", "pow", "reciprocal", "rsqrt", "rsub", "sign", "sqrt", "sub",
-    "where",
-}
+# FP32 instructions per second outside the tensor cores: SMs x 128 lanes x
+# the maximum SM clock of this card (soillib_tpu_torch.bench
+# `spec_fp32_rate`), set by main. Operations are counted one per
+# elementwise op and the kernels are built with -fmad=false, so the data
+# sheet's FP32 TFLOP/s, which counts an FMA as two, would halve the bound.
+PEAK_F32_PER_S = None
 
 
 def log(*a):
@@ -52,11 +51,13 @@ def log(*a):
 
 
 def smi_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    """The card's name and power limit, as nvidia-smi gives them."""
+    import torch
+
+    from soillib_tpu_torch import bench
+
+    return bench.smi_query("name,power.limit",
+                           torch.device("cuda", torch.cuda.current_device()))
 
 
 def cuda_ms(fn, reps):
@@ -209,7 +210,7 @@ def phase_main_path(n=4096, steps=3, iters=32):
         sim.step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(cohort.cohort_round_launches)
+    launches = nonzero(cohort.cohort_round_launches)
     finite_state(sim.state, f"{n}^2 erode")
     if (tuple(sim.state.layers.shape) != (2, n, n)
             or tuple(sim.state.discharge.shape) != (n, n)):
@@ -243,29 +244,20 @@ def capture_solves(sim):
     return captured
 
 
-def ops_per_cell(rules, st, aux, Llen):
-    """Elementwise operations of one plain round per cell, counted by
-    dispatching it on a 32^2 CPU copy of the inputs."""
+def ops_per_cell(rules, st, aux, Llen, closure=None):
+    """Elementwise operations of one plain round per cell (unit weights),
+    counted by dispatching it on a 32^2 CPU copy of the inputs."""
     import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
 
+    from soillib_tpu_torch import bench
     from soillib_tpu_torch.ops import cohort
-
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
-            if func.overloadpacket.__name__.rstrip("_") in _POINTWISE:
-                Count.n += out.numel()
-            return out
 
     s = st[:, :32, :32].cpu()
     a = aux[:, :32, :32].cpu()
-    G = torch.zeros((s.shape[0] - cohort.NSTATE, 32, 32))
-    with Count():
-        cohort.cohort_round(s, G, a, rules, Llen)
-    return Count.n / (32 * 32)
+    G = torch.zeros((cohort.n_deposits(s.shape[0], closure), 32, 32))
+    counts = bench.count_round_ops(cohort.cohort_round, s, G, a, rules, Llen,
+                                   closure)
+    return sum(counts.values()) / (32 * 32)
 
 
 def kernel_entry(kind, captured, launches):
@@ -389,7 +381,7 @@ def phase_faithful_depth(n=1024):
     finally:
         cohort.run_cohort = run
     finite_state(st, f"{n}^2 faithful-depth erode")
-    rounds = dict(cohort.cohort_round_launches)
+    rounds = nonzero(cohort.cohort_round_launches)
     log(f"  {n}^2 transportTol=1e-6, bound {p.maxage - 2} rounds: rounds "
         f"run {rounds}; step {ms:.1f} ms")
 
@@ -503,6 +495,11 @@ def zero_counts(*counts):
     for c in counts:
         for k in c:
             c[k] = 0
+
+
+def nonzero(counts):
+    """The entries of a launch-count dict that are not 0."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def phase_dem(n=4096, seed=17):
@@ -797,10 +794,10 @@ def phase_field_static(n=4096, steps=3, iters=32):
         for _ in range(steps):
             _, ms = timed(sim.step)
             times.append(ms)
-    launches = {"sweep": sweep.sweep_launches["round"],
-                **cohort.cohort_round_launches}
+    launches = nonzero({"sweep": sweep.sweep_launches["round"],
+                        **cohort.cohort_round_launches})
     finite_state(sim.state, f"{n}^2 field-static erode")
-    want = {"sweep": steps * iters, "fluvial": 0, "debris": steps * iters}
+    want = {"sweep": steps * iters, "debris": steps * iters}
     if launches != want:
         raise AssertionError(f"field-static launches {launches}, expected "
                              f"{want}")
@@ -811,13 +808,383 @@ def phase_field_static(n=4096, steps=3, iters=32):
     return sim, times, launches, sw.calls
 
 
+# ---------------------------------------------------------------------------
+# The noise, the FP32 probe, the headline bench, the flagship example and
+# the quality closure
+# ---------------------------------------------------------------------------
+
+
+def phase_noise(n=4096, crop=1024):
+    """noise((n, n), noise_t()) on the card (timed on a second call)
+    against the same call on the CPU over a crop^2 corner, atol 1e-6."""
+    import torch
+
+    import soillib_tpu_torch as soil
+
+    param = soil.noise_t()
+    soil.noise((n, n), param)
+    h, ms = timed(lambda: soil.noise((n, n), param))
+    if tuple(h.shape) != (n, n) or not bool(torch.isfinite(h).all()):
+        raise AssertionError("noise: unexpected shape or non-finite values")
+    t0 = time.perf_counter()
+    want = soil.noise((crop, crop), param, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    got = h[:crop, :crop].cpu()
+    err = check_close(f"noise {crop}^2 corner, card vs CPU", got, want, 0.0,
+                      1e-6)
+    bitwise = torch.equal(got, want)
+    log(f"  noise {n}^2 on the card {ms:.1f} ms; {crop}^2 corner vs the "
+        f"CPU ({cpu_ms:.0f} ms): max abs err {err:.3e}, "
+        f"{'bitwise equal' if bitwise else 'not bitwise'}")
+    return {"ms": ms, "cpu_ms": cpu_ms, "max_abs_err": err,
+            "bitwise": bitwise}
+
+
+def phase_probe(short_reps=4):
+    """Each op of the FP32 probe kernel against its plain chains on the
+    card at a short chain (rtol 1e-5), both timed there; then the timed
+    probe (bench `measure_fp32`: rate and cost weights)."""
+    import torch
+
+    from soillib_tpu_torch import bench
+    from soillib_tpu_torch.ops import fp32_chain as fc
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    saved = dict(fc.fp32_chain_launches)
+    n = fc.probe_elements(dev)
+    x = torch.from_numpy(np.random.default_rng(29).uniform(
+        0.25, 1.0, n).astype(np.float32)).cuda()
+    errs = {}
+    for op in fc.OPS:
+        got = fc.chain_cuda(x, op, short_reps)
+        want = fc.chain_plain(x, op, short_reps)
+        errs[op] = check_close(f"fp32_chain[{op}], {short_reps} reps", got,
+                               want, 1e-5, 0.0)
+    ms_short = cuda_ms(lambda: fc.chain_cuda(x, "fma", short_reps), 20)
+    plain_ms = cuda_ms(lambda: fc.chain_plain(x, "fma", short_reps), 3)
+    fp32 = bench.measure_fp32(dev)
+    fc.fp32_chain_launches.update(saved)
+    log(f"  {n} elements, {short_reps} reps: max abs err "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}; "
+        f"fma kernel {ms_short:.4f} ms, plain {plain_ms:.2f} ms")
+    log(f"  timed probe ({fp32['reps']} reps): fma launch "
+        f"{fp32['fma_launch_s'] * 1e3:.2f} ms, rate "
+        f"{fp32['probe'] / 1e12:.2f}e12/s (spec {fp32['spec'] / 1e12:.2f}"
+        f"e12/s); cost weights "
+        f"{json.dumps({k: round(v, 2) for k, v in fp32['costs'].items()})}")
+    return {"errs": errs, "ms_short": ms_short, "plain_ms": plain_ms,
+            "short_reps": short_reps, "fp32": fp32}
+
+
+def probe_entry(probe, launches):
+    """The probe kernel's line of the report: its fma launch at the
+    bench's reps against the spec-rate bound."""
+    from soillib_tpu_torch.ops import fp32_chain as fc
+
+    fp32 = probe["fp32"]
+    ops = fc.ops_per_launch(fp32["elements"], fp32["reps"])
+    bound_ms = ops / PEAK_F32_PER_S * 1e3
+    return {
+        "name": "fp32_chain[fma]",
+        "route": "cuda",
+        "source": "soillib_tpu_torch/csrc/fp32_chain.cu",
+        "replaces": "bench.py:98",
+        "launches": launches["fma"],
+        "max_abs_err": probe["errs"]["fma"],
+        "ms": fp32["fma_launch_s"] * 1e3,
+        "plain_ms": probe["plain_ms"],
+        "bound_ms": bound_ms,
+        "bound_by": "operations",
+        "library_ms": None,
+        "ops": ops,
+        "reps": fp32["reps"],
+        "elements": fp32["elements"],
+        "plain_reps": probe["short_reps"],
+        "ms_at_plain_reps": probe["ms_short"],
+        "max_abs_err_by_op": probe["errs"],
+        "probe_ops_per_s": fp32["probe"],
+        "spec_ops_per_s": fp32["spec"],
+        "cost_weights": fp32["costs"],
+    }
+
+
+def phase_bench(n=4096, steps=8):
+    """The headline bench's main in this process at n^2, --iters 32 and
+    auto; both print their JSON line. Returns the two lines and the
+    probe kernel's launches."""
+    from soillib_tpu_torch import bench
+    from soillib_tpu_torch.ops import cohort
+    from soillib_tpu_torch.ops import fp32_chain as fc
+
+    keys = {"metric", "value", "unit", "vs_baseline", "hbm_sol",
+            "compute_sol", "bw_bytes_per_s", "bytes_per_cell_step",
+            "fp32_ops_per_s", "fp32_ops_per_cell_step", "device"}
+    zero_counts(fc.fp32_chain_launches, cohort.cohort_round_launches)
+    out = {}
+    for iters in ("32", "auto"):
+        line, ms = timed(lambda: bench.main(
+            ["--size", str(n), "--iters", iters, "--steps", str(steps)]))
+        if set(line) != keys:
+            raise AssertionError(f"bench --iters {iters}: keys {sorted(line)}")
+        if not (math.isfinite(line["value"]) and line["value"] > 0):
+            raise AssertionError(f"bench --iters {iters}: value "
+                                 f"{line['value']}")
+        out[iters] = line
+        log(f"  bench --iters {iters}: {ms / 1e3:.1f} s in all")
+    launches = dict(fc.fp32_chain_launches)
+    if min(launches.values()) == 0 or not cohort.cohort_round_launches[
+            "fluvial"]:
+        raise AssertionError(f"bench launches: probe {launches}, cohort "
+                             f"{nonzero(cohort.cohort_round_launches)}")
+    if out["32"]["bytes_per_cell_step"] != 1488.0:
+        raise AssertionError("bench: bytes per cell-step at 32 rounds is "
+                             f"{out['32']['bytes_per_cell_step']}, not 1488")
+    log(f"  probe launches {launches}; cohort launches "
+        f"{nonzero(cohort.cohort_round_launches)}")
+    return out, launches
+
+
+def phase_example(res=1024, steps=32, report=16):
+    """The flagship example's main at res^2; its erosion.zip must read
+    back (zip_load) bitwise equal to the final state, with the pixel
+    scale."""
+    import os
+    import tempfile
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.examples import erosion as example
+
+    with tempfile.TemporaryDirectory() as d:
+        run, ms = timed(lambda: example.main(
+            ["--res", str(res), "--steps", str(steps), "--report",
+             str(report), "--out", d]))
+        loaded = soil.util.zip_load(os.path.join(d, "erosion.zip"))
+    sim = run["sim"]
+    finite_state(sim.state, f"example {res}^2")
+    pscale = [20.0 / res, 20.0 / res, 4.0]
+    for name in ("height", "sediment", "discharge"):
+        arr, meta = loaded[name]
+        want = getattr(sim.state, name).cpu().numpy()
+        if arr.dtype != np.float32 or not np.array_equal(arr, want):
+            raise AssertionError(f"example: erosion.zip {name} differs from "
+                                 f"the final state")
+        if not np.allclose(meta.scale, pscale, rtol=1e-6):
+            raise AssertionError(f"example: {name} scale {meta.scale}")
+    log(f"  ms/step per report {run['ms_per_step']}; whole run {ms:.0f} "
+        f"ms; erosion.zip read back bitwise")
+    return run["ms_per_step"]
+
+
+def quality_params(iters):
+    import soillib_tpu_torch as soil
+
+    p = soil.ErosionParams()
+    p.transportIterations = iters
+    p.trackAlbedo = True
+    p.closure = soil.CohortClosure(nodes=4, colors=8)
+    return p
+
+
+def phase_quality_erode_check(n=256, steps=2, iters=32):
+    """A quality erode (CohortClosure(nodes=4, colors=8)) through the
+    kernel against the same erode with the plain rounds, both on the
+    card: fields at rtol 1e-4 / atol 1e-6 of each field's scale."""
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.ops import cohort
+
+    p = quality_params(iters)
+    h = terrain(n, 31)
+    zero_counts(cohort.cohort_round_launches)
+    got = soil.erode(soil.ErosionState.zeros((n, n), height=h), (0.1, 0.1,
+                                                                 4.0), p,
+                     steps=steps)
+    launches = nonzero(cohort.cohort_round_launches)
+    want_launches = {"fluvial,nodes=4": steps * iters * 8,
+                     "debris": steps * iters}
+    if launches != want_launches:
+        raise AssertionError(f"quality erode launches {launches}, expected "
+                             f"{want_launches}")
+    run = cohort.run_cohort
+
+    def plain(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
+        return cohort.cohort_advance_reference(
+            cohort.as_stack(st0), cohort.as_stack(aux), rules, int(iters),
+            Llen, closure=closure, tol=tol)[1]
+
+    cohort.run_cohort = plain
+    try:
+        want = soil.erode(soil.ErosionState.zeros((n, n), height=h),
+                          (0.1, 0.1, 4.0), p, steps=steps)
+    finally:
+        cohort.run_cohort = run
+    errs, same = {}, True
+    for name in ("height", "sediment", "discharge", "mass", "debris"):
+        g, w = getattr(got, name), getattr(want, name)
+        errs[name] = check_close(f"quality erode {n}^2 {name}", g, w, 1e-4,
+                                 1e-6 * float(w.abs().max()))
+        same = same and torch.equal(g, w)
+    log(f"  {n}^2, {steps} steps: kernel path vs plain path "
+        f"{'bitwise equal' if same else 'within rtol 1e-4'}; max abs err "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}; "
+        f"launches {launches}")
+    return errs
+
+
+class CaptureFirstGroup:
+    """While active, keeps a copy of the first color group of the first
+    fluvial cohort solve's state (and its aux, rules, Llen); the solve
+    itself runs on."""
+
+    def __init__(self, per):
+        self.per, self.captured = per, None
+
+    def __enter__(self):
+        from soillib_tpu_torch.ops import cohort
+
+        run = self.run = cohort.run_cohort
+
+        def spy(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
+            if self.captured is None and rules.kind == "fluvial":
+                st = cohort.as_stack(st0)
+                self.captured = (st[:self.per].clone(),
+                                 cohort.as_stack(aux).clone(), rules, Llen)
+            return run(st0, aux, rules, iters, Llen, closure, tol)
+
+        cohort.run_cohort = spy
+        return self
+
+    def __exit__(self, *exc):
+        from soillib_tpu_torch.ops import cohort
+
+        cohort.run_cohort = self.run
+
+
+def phase_quality(n=4096, steps=2, iters=32):
+    """ErosionSim at n^2 with CohortClosure(nodes=4, colors=8): the
+    fluvial solve launches the NODES=4 kernel once per color group and
+    round, in chunks of color groups chosen by the memory rule
+    (`color_chunk`, once per step); the debris solve keeps the default
+    closure. Returns
+    the sim, the step times, the launches, the chunk and the captured
+    inputs of one color group."""
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.models import erosion
+    from soillib_tpu_torch.ops import cohort
+
+    p = quality_params(iters)
+    state = soil.ErosionState.zeros((n, n), height=terrain(n, 37))
+    sim = soil.ErosionSim((n, n), (0.1, 0.1, 4.0), p, state=state)
+    zero_counts(cohort.cohort_round_launches)
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    with Spy(erosion, "color_chunk") as chunk, \
+            CaptureFirstGroup(4 * (cohort.NSTATE + 7)) as cap:
+        for _ in range(steps):
+            _, ms = timed(sim.step)
+            times.append(ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = nonzero(cohort.cohort_round_launches)
+    finite_state(sim.state, f"{n}^2 quality erode")
+    want = {"fluvial,nodes=4": steps * iters * 8, "debris": steps * iters}
+    if launches != want:
+        raise AssertionError(f"quality launches {launches}, expected {want}")
+    chunks = [out for _, out in chunk.calls]
+    log(f"  step ms {[round(t, 1) for t in times]}; launches {launches}; "
+        f"color groups per chunk, by step: {chunks} of 8 (68 channels "
+        f"each); peak memory {peak_gb:.1f} GB")
+    return sim, times, launches, chunks, cap.captured
+
+
+def nodes_entry(captured, launches, crop=2048, rounds=16):
+    """The NODES=4 kernel's line of the report. Timed at the path's own
+    n^2 inputs (one color group, 68 channels); held against the plain
+    nodes round on a crop^2 corner of them (1 round: state and deposits,
+    rtol 2e-6 / atol 1e-5; `rounds` rounds: deposits, rtol 2e-5 / atol
+    1e-5), where the plain round's temporaries (about 15 times the state)
+    fit beside the path's buffers."""
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.ops import cohort
+
+    st, aux, rules, Llen = captured
+    cl = soil.CohortClosure(nodes=4)
+    S, W, H = st.shape
+    C = cohort.n_deposits(S, cl)
+    saved = dict(cohort.cohort_round_launches)
+    G = torch.zeros((C, W, H), device="cuda")
+    out = torch.empty_like(st)
+    ms = cuda_ms(lambda: cohort.cohort_round_cuda(st, aux, G, rules, Llen,
+                                                  out=out, nodes=4), 10)
+    del G, out
+    sc = st[:, :crop, :crop].contiguous()
+    ac = aux[:, :crop, :crop].contiguous()
+    Gc = torch.zeros((C, crop, crop), device="cuda")
+    st_k = cohort.cohort_round_cuda(sc, ac, Gc, rules, Llen, nodes=4)
+    st_p, G_p = cohort.cohort_round(sc, torch.zeros_like(Gc), ac, rules,
+                                    Llen, cl)
+    what = f"fluvial nodes=4 {S}x{crop}x{crop} crop of the path's inputs"
+    err = max(check_close(f"{what}, 1-round state", st_k, st_p, 2e-6, 1e-5),
+              check_close(f"{what}, 1-round deposits", Gc, G_p, 2e-6, 1e-5))
+    bitwise = torch.equal(st_k, st_p) and torch.equal(Gc, G_p)
+    del st_k, st_p, G_p
+    _, g_k = cohort.cohort_advance_cuda(sc, ac, rules, rounds, Llen,
+                                        closure=cl)
+    _, g_p = cohort.cohort_advance_reference(sc, ac, rules, rounds, Llen,
+                                             closure=cl)
+    err16 = check_close(f"{what}, {rounds}-round deposits", g_k, g_p, 2e-5,
+                        1e-5)
+    del g_k, g_p
+    Gc.zero_()
+    crop_ms = cuda_ms(lambda: cohort.cohort_round_cuda(sc, ac, Gc, rules,
+                                                       Llen, nodes=4), 10)
+    plain_ms = cuda_ms(lambda: cohort.cohort_round(sc, Gc, ac, rules, Llen,
+                                                   cl), 3)
+    cohort.cohort_round_launches.update(saved)
+    nbytes = 4 * W * H * (S + 4 + C + S + C)
+    ops = ops_per_cell(rules, st, aux, Llen, cl) * W * H
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_F32_PER_S * 1e3
+    log(f"  {what}: 1 round {'bitwise equal' if bitwise else 'within rtol'}"
+        f" (max abs err {err:.3e}); {rounds} rounds deposits max abs err "
+        f"{err16:.3e}; kernel {ms:.3f} ms/launch at {W}x{H} ({crop_ms:.3f} "
+        f"at the crop), plain round at the crop {plain_ms:.2f} ms, bound "
+        f"{max(bytes_ms, ops_ms):.3f} ms")
+    return {
+        "name": "cohort_round[fluvial,nodes=4]",
+        "route": "cuda",
+        "source": "soillib_tpu_torch/csrc/cohort_round.cu",
+        "replaces": "soillib_tpu/ops/cohort.py:1480",
+        "launches": launches["fluvial,nodes=4"],
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+        "bytes_bound_ms": bytes_ms,
+        "shape": [S, W, H],
+        "plain_shape": [S, crop, crop],
+        "ms_at_plain_shape": crop_ms,
+        "bitwise_1_round": bitwise,
+        "max_abs_err_16_rounds": err16,
+        "bytes_per_cell_round": nbytes // (W * H),
+        "ops_per_cell_round": ops / (W * H),
+    }
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from soillib_tpu_torch import _native
+    global PEAK_F32_PER_S
+    from soillib_tpu_torch import _native, bench
     from soillib_tpu_torch.ops import cohort
 
     t_start = time.perf_counter()
@@ -826,6 +1193,10 @@ def main():
     log(f"  {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     log(f"  nvidia-smi: {smi}")
+    PEAK_F32_PER_S = bench.spec_fp32_rate(
+        torch.device("cuda", torch.cuda.current_device()))
+    log(f"  FP32 issue rate (SMs x 128 lanes x max SM clock): "
+        f"{PEAK_F32_PER_S:.4e}/s")
     t0 = time.perf_counter()
     _native.build()
     log(f"  built {_native.sources()} in parallel in "
@@ -883,6 +1254,34 @@ def main():
     phase_breakdown(fs_sim, (("sweep_kernel_ms", "transport_round_kernel"),
                              ("cohort_kernel_ms", "cohort_round_kernel")))
     del fs_sim
+
+    log("phase 9: noise 4096^2 on the card vs the CPU")
+    phase_noise()
+
+    log("phase 10: FP32 probe kernel vs plain chains, and the timed probe")
+    probe = phase_probe()
+
+    log("phase 11: headline bench 4096^2, --iters 32 and auto, --steps 8")
+    _, probe_launches = phase_bench()
+    entries.append(probe_entry(probe, probe_launches))
+
+    log("phase 12: flagship example 1024^2, 32 steps")
+    phase_example()
+
+    log("phase 13: quality closure CohortClosure(nodes=4, colors=8)")
+    phase_quality_erode_check()
+    # The chunk rule reads the driver's free memory: hand back what the
+    # earlier phases left in torch's cache.
+    torch.cuda.empty_cache()
+    q_sim, _, q_launches, _, q_captured = phase_quality()
+    log("where the time goes: one profiled 4096^2 quality step")
+    phase_breakdown(q_sim, (("cohort_nodes_kernel_ms",
+                             "cohort_round_nodes_kernel"),
+                            ("cohort_kernel_ms", "cohort_round_kernel")))
+    del q_sim
+    torch.cuda.empty_cache()
+    entries.append(nodes_entry(q_captured, q_launches))
+    del q_captured
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

@@ -17,10 +17,13 @@ of `soillib_tpu`.
 
 Entry points run on the card unless the caller passes `device="cpu"`
 (the plain torch path, used by the tests); tensor inputs stay on their
-device.
+device. The headline bench and the flagship example run as
+`python -m soillib_tpu_torch.bench` and
+`python -m soillib_tpu_torch.examples.erosion`.
 """
 
 from soillib_tpu_torch.core.grid import D4, D4_SHIFTS, D8, D8_SHIFTS
+from soillib_tpu_torch.core.timer import ms, ns, profile, s, timer, us
 from soillib_tpu_torch.models.params import ErosionParams, param_t
 from soillib_tpu_torch.models.erosion import (
     layer_merge,
@@ -37,6 +40,7 @@ from soillib_tpu_torch.models.simulation import (
 )
 from soillib_tpu_torch.ops.cohort import CohortClosure
 from soillib_tpu_torch.ops.condition import condition, fill_depressions
+from soillib_tpu_torch.ops.noise import noise, noise_t
 from soillib_tpu_torch.ops.graph import (
     accumulate,
     accumulate_decay,
@@ -47,6 +51,9 @@ from soillib_tpu_torch.ops.graph import (
 )
 from soillib_tpu_torch.ops.stencil import gradient, laplacian, negslope, normal
 from soillib_tpu_torch.ops.transport import solve_uniform
+from soillib_tpu_torch.io.tiff import tiff
+from soillib_tpu_torch.io.geotiff import geotiff, geotiff_meta
+from soillib_tpu_torch import util
 
 # Reference-compatible edge-connectivity enumerators (graph.hpp:11-14).
 d4 = D4
@@ -54,9 +61,11 @@ d8 = D8
 
 __all__ = [
     "D4", "D8", "d4", "d8", "D4_SHIFTS", "D8_SHIFTS",
+    "timer", "profile", "ns", "us", "ms", "s",
     "gradient", "negslope", "laplacian", "normal",
     "steepest", "direction", "random_weighted", "slope",
     "accumulate", "accumulate_decay",
+    "noise", "noise_t",
     "condition", "fill_depressions",
     "solve_uniform",
     "ErosionParams", "param_t",
@@ -64,4 +73,6 @@ __all__ = [
     "transport_fluvial", "transport_debris",
     "mass_transfer", "mass_creep", "layer_merge",
     "CohortClosure",
+    "tiff", "geotiff", "geotiff_meta",
+    "util",
 ]

@@ -36,6 +36,26 @@
 // operations per cell are its compute cost. K-round temporal blocking in
 // shared memory (fewer bytes per round) is left for later work.
 //
+// Quality closures. With CohortClosure(nodes=N), N in {2, 4} (node_rule
+// "face"), the state holds N full ensembles per cell, S = N (NSTATE + C)
+// channels node-major, and arrivals are routed to a node by the face they
+// enter through (ops/cohort.py `_cohort_round_nodes`). The kernel
+// `cohort_round_nodes_kernel<KIND, ALBEDO, NODES>` evaluates each node's
+// round with the unchanged single-ensemble physics and sums every face's
+// payloads over the source nodes, in node order, BEFORE the push, as the
+// plain version does ((p0 + p1) + p2) + p3. Those sums, 4 faces x
+// (NSTATE + C) channels per cell, are 272 floats for nodes=4 fluvial: they
+// are staged in dynamic shared memory (69,632 B a block, above the 48 KB
+// default, hence the opt-in attribute), not registers. Node k of nodes=4
+// then receives face k from its donor only; nodes=2 receives (+x) + (-x),
+// respectively (+y) + (-y); deposits are G + (((o0 + o1) + o2) + o3),
+// respectively G + (o0 + o1). A payload the plain version leaves out
+// (None: the own-axis offset moments toward +x and +y, channels 6/8 and
+// 7/9) is skipped here too, never added as +0.0, so the kernel takes the
+// plain version's adds and no others. Colors (CohortClosure(colors=M))
+// need nothing here: each color group is a contiguous channel slice, and
+// ops/cohort.py launches once per group, in color order, into the same G.
+//
 // Arithmetic follows the plain version operation by operation; in
 // particular the Abramowitz-Stegun normal CDF (not erff), the cubic expm1
 // series below |x| < 0.01 with the +-40 exponent clips, exp(-min(x, 88)),
@@ -521,33 +541,154 @@ cohort_round_kernel(CohortParams p, const float* __restrict__ st,
   }
 }
 
-template <int KIND, bool ALBEDO>
+// The payloads `_round_payloads` leaves out (None): the own-axis offset
+// moments toward the face they reset to 0, +x for fx/fx^2 (channels 6, 8)
+// and +y for fy/fy^2 (channels 7, 9).
+__device__ __forceinline__ constexpr bool absent(int c, int d) {
+  return ((c == 6 || c == 8) && d == 0) || ((c == 7 || c == 9) && d == 2);
+}
+
+// One round of an N-node state (see the header). Dynamic shared memory:
+// face[c][d][ty][tx], channel c's payload toward face d summed over the
+// cell's source nodes.
+template <int KIND, bool ALBEDO, int NODES>
+__global__ void __launch_bounds__(NTHREADS)
+cohort_round_nodes_kernel(CohortParams p, const float* __restrict__ st,
+                          const float* __restrict__ aux,
+                          float* __restrict__ G, float* __restrict__ out) {
+  using R = Rules<KIND, ALBEDO>;
+  constexpr int P = NSTATE + R::C;
+  extern __shared__ float face[];
+
+  const int tx = threadIdx.x;  // along y
+  const int ty = threadIdx.y;  // along x
+  const int gx = (int)blockIdx.y * (BX - 2) + ty - 1;
+  const int gy = (int)blockIdx.x * (BY - 2) + tx - 1;
+  const int W = p.W, H = p.H;
+  const bool inside = gx >= 0 && gx < W && gy >= 0 && gy < H;
+  const size_t plane = (size_t)W * (size_t)H;
+  const size_t cell = inside ? (size_t)gx * (size_t)H + (size_t)gy : 0;
+#define F(c, d, x, y) face[(((c) * 4 + (d)) * BX + (x)) * BY + (y)]
+
+  if (inside) {
+    float auxv[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) auxv[c] = aux[c * plane + cell];
+#pragma unroll 1
+    for (int j = 0; j < NODES; ++j) {
+      float stv[P];
+#pragma unroll
+      for (int c = 0; c < P; ++c) stv[c] = st[(j * P + c) * plane + cell];
+      float pay[P][4];
+      round_payloads<KIND, ALBEDO>(p, stv, auxv, pay);
+#pragma unroll
+      for (int c = 0; c < P; ++c) {
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          if (absent(c, d)) continue;
+          F(c, d, ty, tx) = j == 0 ? pay[c][d] : F(c, d, ty, tx) + pay[c][d];
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < P; ++c) {
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      // Cells outside the domain emit nothing (the zero boundary); an
+      // absent payload reads as the zero it stands for in the plain pz().
+      if (!inside || absent(c, d)) F(c, d, ty, tx) = 0.f;
+    }
+  }
+  __syncthreads();
+
+  const bool owner = inside && tx >= 1 && tx < BY - 1 && ty >= 1 &&
+                     ty < BX - 1;
+  if (!owner) return;
+#pragma unroll
+  for (int c = 0; c < P; ++c) {
+    // Face d's arrival here comes from the donor on the opposite side.
+    const float a0 = F(c, 0, ty - 1, tx);  // +x payload of (x-1, y)
+    const float a1 = F(c, 1, ty + 1, tx);  // -x payload of (x+1, y)
+    const float a2 = F(c, 2, ty, tx - 1);  // +y payload of (x, y-1)
+    const float a3 = F(c, 3, ty, tx + 1);  // -y payload of (x, y+1)
+    float o[NODES];
+    if constexpr (NODES == 4) {
+      o[0] = a0;
+      o[1] = a1;
+      o[2] = a2;
+      o[3] = a3;
+    } else {
+      o[0] = absent(c, 0) ? a1 : (absent(c, 1) ? a0 : a0 + a1);
+      o[1] = absent(c, 2) ? a3 : (absent(c, 3) ? a2 : a2 + a3);
+    }
+#pragma unroll
+    for (int k = 0; k < NODES; ++k) out[(k * P + c) * plane + cell] = o[k];
+    if (c >= NSTATE) {
+      float dep = o[0];
+#pragma unroll
+      for (int k = 1; k < NODES; ++k) dep = dep + o[k];
+      float* g = G + (size_t)(c - NSTATE) * plane + cell;
+      *g = *g + dep;
+    }
+  }
+#undef F
+}
+
+template <int KIND, bool ALBEDO, int NODES>
 cudaError_t launch(const CohortParams& p, const float* st, const float* aux,
                    float* G, float* out, cudaStream_t stream) {
   dim3 block(BY, BX);
   dim3 grid((p.H + BY - 3) / (BY - 2), (p.W + BX - 3) / (BX - 2));
-  cohort_round_kernel<KIND, ALBEDO><<<grid, block, 0, stream>>>(p, st, aux,
-                                                                 G, out);
+  if constexpr (NODES == 1) {
+    cohort_round_kernel<KIND, ALBEDO><<<grid, block, 0, stream>>>(
+        p, st, aux, G, out);
+  } else {
+    constexpr int smem =
+        (int)sizeof(float) * (NSTATE + Rules<KIND, ALBEDO>::C) * 4 * BX * BY;
+    // Above 48 KB a block's dynamic shared memory needs the opt-in (set
+    // on every launch: it is per device, and cheap).
+    cudaError_t e = cudaFuncSetAttribute(
+        cohort_round_nodes_kernel<KIND, ALBEDO, NODES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    cohort_round_nodes_kernel<KIND, ALBEDO, NODES>
+        <<<grid, block, smem, stream>>>(p, st, aux, G, out);
+  }
   return cudaGetLastError();
+}
+
+template <int KIND, bool ALBEDO>
+cudaError_t launch_nodes(int nodes, const CohortParams& p, const float* st,
+                         const float* aux, float* G, float* out,
+                         cudaStream_t stream) {
+  switch (nodes) {
+    case 1: return launch<KIND, ALBEDO, 1>(p, st, aux, G, out, stream);
+    case 2: return launch<KIND, ALBEDO, 2>(p, st, aux, G, out, stream);
+    case 4: return launch<KIND, ALBEDO, 4>(p, st, aux, G, out, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // C entry point (bound with ctypes by ops/cohort.py). kind: 0 fluvial,
-// 1 debris; albedo: 0/1. Returns the CUDA error of the launch (0 on
-// success).
-extern "C" int cohort_round_launch(int kind, int albedo,
+// 1 debris; albedo: 0/1; nodes: 1, 2 or 4. Returns the CUDA error of the
+// launch (0 on success).
+extern "C" int cohort_round_launch(int kind, int albedo, int nodes,
                                    const CohortParams* p, const float* st,
                                    const float* aux, float* G, float* out,
                                    cudaStream_t stream) {
   if (p->W <= 0 || p->H <= 0) return (int)cudaErrorInvalidValue;
   if (kind == FLUVIAL) {
-    return (int)(albedo ? launch<FLUVIAL, true>(*p, st, aux, G, out, stream)
-                        : launch<FLUVIAL, false>(*p, st, aux, G, out, stream));
+    return (int)(albedo
+        ? launch_nodes<FLUVIAL, true>(nodes, *p, st, aux, G, out, stream)
+        : launch_nodes<FLUVIAL, false>(nodes, *p, st, aux, G, out, stream));
   }
   if (kind == DEBRIS) {
-    return (int)(albedo ? launch<DEBRIS, true>(*p, st, aux, G, out, stream)
-                        : launch<DEBRIS, false>(*p, st, aux, G, out, stream));
+    return (int)(albedo
+        ? launch_nodes<DEBRIS, true>(nodes, *p, st, aux, G, out, stream)
+        : launch_nodes<DEBRIS, false>(nodes, *p, st, aux, G, out, stream));
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -36,7 +36,8 @@ import torch
 
 from soillib_tpu_torch.core.halo import NO_HALO
 from soillib_tpu_torch.models.params import ErosionParams
-from soillib_tpu_torch.ops.cohort import ENV_CLOSURE
+from soillib_tpu_torch.ops.cohort import ENV_CLOSURE, NSTATE, _check_closure
+from soillib_tpu_torch.ops.noise import mul_u32
 from soillib_tpu_torch.ops.stencil import _shift
 from soillib_tpu_torch.ops.transport import (
     expected_exp_step,
@@ -154,16 +155,123 @@ def _cohort_state(w0, speed0, carried0):
             w0 * (1.0 / 3.0), w0 * (1.0 / 3.0)) + tuple(carried0)
 
 
-def _build_cohort_state(w0, speed, carried0, closure):
-    """Initial cohort state channels (single node; the N-node mixture is
-    a quality closure, not ported yet)."""
-    nnodes = int(getattr(closure, "nodes", 1) or 1) if closure else 1
-    if nnodes > 1:
+def _color_masks(M, rule, speed, shape, halo=NO_HALO):
+    """Disjoint {0, 1} float birth-partition masks for the colored
+    quality mode (CohortClosure.colors); the masks sum to 1.
+
+    "dir": birth-velocity angle sectors, rotated half a bin. "hash": a
+    Knuth mix of the global cell index. "peak": a hash of the local peak
+    each birth cell drains from, found by following the quantized
+    steepest-ascent direction (-speed) with ceil(log2(W*H)) rounds of
+    pointer doubling (r = r[r]). The uint32 hash arithmetic runs in int64
+    (`mul_u32`)."""
+    W, H = int(shape[0]), int(shape[1])
+    dev = speed.device
+    if rule == "dir":
+        theta = torch.atan2(speed[1], speed[0])  # (-pi, pi]
+        sect = torch.floor((theta + math.pi) * (M / (2.0 * math.pi)) + 0.5)
+        idx = sect.to(torch.int64) % M
+    elif rule == "peak":
+        if halo is not NO_HALO:
+            raise NotImplementedError(
+                "color_rule='peak' needs a global pointer chase; use "
+                "'hash' or 'dir' under sharding"
+            )
+        theta = torch.atan2(-speed[1], -speed[0])
+        sect = torch.floor(theta * (4.0 / math.pi) + 0.5).to(torch.int64) % 8
+        d8x = torch.tensor([1, 1, 0, -1, -1, -1, 0, 1], device=dev)
+        d8y = torch.tensor([0, 1, 1, 1, 0, -1, -1, -1], device=dev)
+        dx = d8x[sect]
+        dy = d8y[sect]
+        xi = torch.arange(W, device=dev)[:, None]
+        yi = torch.arange(H, device=dev)[None, :]
+        self_idx = xi * H + yi
+        up = (torch.clamp(xi + dx, 0, W - 1) * H
+              + torch.clamp(yi + dy, 0, H - 1))
+        still = _len2(speed[0], speed[1]) <= _EPS
+        r = torch.where(still, self_idx, up).reshape(-1)
+        for _ in range(max(1, math.ceil(math.log2(float(W) * H)))):
+            r = r[r]
+        h = mul_u32(r, 2654435761)
+        h = mul_u32(h ^ (h >> 16), 2246822519)
+        idx = ((h ^ (h >> 13)) % M).reshape(W, H)
+    elif rule == "hash":
+        x0, y0, _, Hg = halo.global_offsets((W, H))
+        gx = x0 + torch.arange(W, dtype=torch.int64, device=dev)[:, None]
+        gy = y0 + torch.arange(H, dtype=torch.int64, device=dev)[None, :]
+        h = mul_u32((gx * Hg + gy) & 0xFFFFFFFF, 2654435761)
+        h = mul_u32(h ^ (h >> 16), 2246822519)
+        idx = ((h ^ (h >> 13)) % M).expand(W, H)
+    else:
+        raise ValueError(f"unknown color_rule: {rule!r}")
+    return [torch.where(idx == m, 1.0, 0.0) for m in range(M)]
+
+
+def _node_masks(nnodes, speed, node_rule="face"):
+    """Birth-node assignment for the N-node mixture (CohortClosure.nodes):
+    face rule, a newborn cohort joins the node of the face its velocity
+    points toward ([+x, -x, +y, -y]; nodes=2 pools the signs per axis);
+    sign rule, its velocity sign quadrant ([++, +-, -+, --])."""
+    if node_rule == "sign":
+        if nnodes != 4:
+            raise ValueError("node_rule='sign' requires nodes=4")
+        xpos = speed[0] >= 0.0
+        ypos = speed[1] >= 0.0
+        return [torch.where(xpos & ypos, 1.0, 0.0),
+                torch.where(xpos & ~ypos, 1.0, 0.0),
+                torch.where(~xpos & ypos, 1.0, 0.0),
+                torch.where(~xpos & ~ypos, 1.0, 0.0)]
+    if node_rule != "face":
         raise NotImplementedError(
-            "CohortClosure(nodes>1) is a quality closure: ROADMAP queue A "
-            "item 7"
-        )
-    return _cohort_state(w0, speed, carried0)
+            f"node_rule={node_rule!r} is not ported (ROADMAP queue A item 7)")
+    isx = torch.abs(speed[0]) >= torch.abs(speed[1])
+    if nnodes == 2:
+        mx = torch.where(isx, 1.0, 0.0)
+        return [mx, 1.0 - mx]
+    if nnodes == 4:
+        xpos = speed[0] >= 0.0
+        ypos = speed[1] >= 0.0
+        return [torch.where(isx & xpos, 1.0, 0.0),
+                torch.where(isx & ~xpos, 1.0, 0.0),
+                torch.where(~isx & ypos, 1.0, 0.0),
+                torch.where(~isx & ~ypos, 1.0, 0.0)]
+    raise ValueError(f"nodes must be 1, 2 or 4, got {nnodes}")
+
+
+def _build_cohort_state(w0, speed, carried0, closure):
+    """Initial cohort state channels, node-split when the closure asks
+    for the N-node mixture (every channel carries a w0 factor, so node
+    masking is a per-channel multiply)."""
+    nnodes = int(getattr(closure, "nodes", 1) or 1) if closure else 1
+    if nnodes <= 1:
+        return _cohort_state(w0, speed, carried0)
+    chans = ()
+    for mk in _node_masks(nnodes, speed, closure.node_rule):
+        chans += _cohort_state(w0 * mk, speed, [c * mk for c in carried0])
+    return chans
+
+
+def color_chunk(M, per, shape, device) -> int:
+    """Color groups per cohort solve. On the card: the largest divisor c
+    of M whose state buffers fit in half of the device memory the CUDA
+    driver reports free (`torch.cuda.mem_get_info`). A solve holds three of
+    them, the chunk's initial state and the two ping-pong states of the
+    rounds, each c x `per` channels x W x H x 4 B: at 4096^2 one color of
+    nodes=4, C=7 is 68 channels, 4.6 GB a buffer. Memory cached by
+    torch's allocator is not counted: smaller tensors split its
+    segments, so it may hold no whole buffer; a later solve, with the
+    first one's buffers cached, takes smaller chunks and reuses them.
+    Elsewhere every color goes into one solve, as the JAX package does
+    off the TPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return M
+    free, _ = torch.cuda.mem_get_info(device)
+    W, H = int(shape[0]), int(shape[1])
+    for c in range(M, 1, -1):
+        if M % c == 0 and 3 * c * per * W * H * 4 <= free / 2:
+            return c
+    return 1
 
 
 def _debris_closure(p):
@@ -181,16 +289,40 @@ def _debris_closure(p):
 
 def _run_cohort_colored(halo, w0, speed, carried0, aux, rules, iters,
                         Llen, closure, tol=0.0):
-    """Cohort solve -> (C, W, H) deposits. Colored birth partitions
-    (`closure.colors` > 1) are a quality closure, not ported yet."""
-    cl = closure or ENV_CLOSURE
-    if int(getattr(cl, "colors", 1) or 1) > 1:
-        raise NotImplementedError(
-            "CohortClosure(colors>1) is a quality closure: ROADMAP queue A "
-            "item 7"
-        )
-    st0 = _build_cohort_state(w0, speed, carried0, cl)
-    return halo.run_cohort(st0, aux, rules, iters, Llen, closure, tol=tol)
+    """Cohort solve -> (C, W, H) deposits, optionally split into
+    `closure.colors` disjoint birth sub-populations whose deposits sum
+    (transport is linear in sources). The color sub-states go through
+    the solve `color_chunk` at a time, each chunk one state of stacked
+    color groups; the chunks' deposits add in order."""
+    cl = _check_closure(closure or ENV_CLOSURE)
+    M = int(cl.colors or 1)
+    if M <= 1:
+        st0 = _build_cohort_state(w0, speed, carried0, cl)
+        return halo.run_cohort(st0, aux, rules, iters, Llen, closure,
+                               tol=tol)
+    masks = _color_masks(M, cl.color_rule, speed, w0.shape, halo)
+    nnodes = int(cl.nodes or 1)
+    per = nnodes * (NSTATE + len(carried0))
+    cb = color_chunk(M, per, w0.shape, w0.device)
+    G = None
+    for j0 in range(0, M, cb):
+        chunk = masks[j0:j0 + cb]
+        # The chunk's state is filled color by color, so at most one
+        # color's channels exist beside it.
+        st = torch.empty((len(chunk) * per,) + tuple(w0.shape),
+                         dtype=torch.float32, device=w0.device)
+        for m, mk in enumerate(chunk):
+            chans = _build_cohort_state(w0 * mk, speed,
+                                        [c * mk for c in carried0], cl)
+            for k, ch in enumerate(chans):
+                st[m * per + k] = ch
+            del chans
+        g = halo.run_cohort(st, aux, rules, iters, Llen,
+                            dataclasses.replace(cl, colors=len(chunk)),
+                            tol=tol)
+        del st
+        G = g if G is None else G + g
+    return G
 
 
 # ---------------------------------------------------------------------------

@@ -22,13 +22,22 @@ callback; it returns the implicit-Euler friction weight w1 and a tuple of
 per-attenuation-CLASS transit factors; `rules.classes` maps each carried
 channel to its factor class.
 
+Quality closures: with `closure.nodes` N in (2, 4) the state carries N
+full ensembles per cell and arrivals are routed to a node by the face
+they entered through (`_cohort_round_nodes`); with `closure.colors` M > 1
+it carries M independent color groups (disjoint birth sub-populations)
+whose deposits sum. A state is then colors x nodes x (NSTATE + C)
+channels, color-major.
+
 Two execution paths, chosen by the tensors' device in `run_cohort`:
   * CPU tensors: `cohort_advance_reference`, one plain round at a time.
   * CUDA tensors: `cohort_advance_cuda`, one launch of the hand-written
-    Hopper kernel (csrc/cohort_round.cu) per round. It takes the rule
-    sets this package defines (`rules.kind` "fluvial" or "debris") and
-    raises on anything else.
-Only the default closure is ported (see `CohortClosure`).
+    Hopper kernel (csrc/cohort_round.cu) per round and color group, the
+    groups in order into the same deposits. It takes the rule sets this
+    package defines (`rules.kind` "fluvial" or "debris") and raises on
+    anything else.
+Ported closures: the default, plus `nodes` in (1, 2, 4) with
+node_rule="face" and any `colors` (see `_check_closure`).
 """
 
 from __future__ import annotations
@@ -55,18 +64,18 @@ _OFF_WMIN = 0.05
 TOL_CHECK_ROUNDS = 16
 
 _NOT_PORTED = (
-    "only the default CohortClosure (offsets, pooled offstep, gauss "
-    "streams, no xmom/perstream, 1 node, 1 color) is ported; the quality "
-    "closures are ROADMAP queue A item 7"
+    "only CohortClosure's offsets, pooled offstep, gauss streams, no "
+    "xmom/perstream, nodes 1/2/4 with node_rule='face' and any colors are "
+    "ported; the other closure variants are ROADMAP queue A item 7"
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class CohortClosure:
     """Closure configuration (hashable; see the JAX package's
-    `CohortClosure` for what each field selects). Only the default is
-    ported: any other value raises `NotImplementedError` where the solve
-    runs."""
+    `CohortClosure` for what each field selects). Variants that are not
+    ported raise `NotImplementedError` where the solve runs (see
+    `_check_closure`)."""
 
     offsets: bool = True
     offstep: object = True  # True (pooled) | "stream" | False
@@ -99,12 +108,18 @@ ENV_CLOSURE = _env_closure()
 
 
 def _check_closure(closure) -> CohortClosure:
-    """The closure in effect (None -> the env default); raises unless it
-    is the default closure, the only one ported."""
+    """The closure in effect (None -> the env default). Raises ValueError
+    for a node or color count the JAX package refuses too, and
+    NotImplementedError for a variant that is not ported."""
     cl = closure or ENV_CLOSURE
+    nodes = int(cl.nodes or 1)
+    if nodes not in (1, 2, 4):
+        raise ValueError(f"nodes must be 1, 2 or 4, got {nodes}")
+    if int(cl.colors or 1) < 1:
+        raise ValueError(f"colors must be >= 1, got {cl.colors}")
     if not (cl.offsets is True and cl.offstep is True
             and cl.vdist == "gauss" and not cl.xmom and not cl.perstream
-            and int(cl.nodes or 1) == 1 and int(cl.colors or 1) == 1):
+            and (nodes == 1 or cl.node_rule == "face")):
         raise NotImplementedError(f"{_NOT_PORTED}; got {cl!r}")
     return cl
 
@@ -259,11 +274,78 @@ def _stream_advance(w1, dL, dvar, ax, ay, mx, my, m2x_, m2y_, mxy_):
 
 def cohort_round(st, G, aux, rules, Llen, closure=None):
     """One cohort transit: mix -> particle-state step -> push -> deposit.
-    Returns (arrivals = the next state, G + the carried arrivals)."""
+    Returns (arrivals = the next state, G + the carried arrivals).
+
+    With `closure.colors` M > 1 the M color groups go through one after
+    another, G updated after each; with `closure.nodes` > 1 arrivals are
+    routed to nodes by entry face (`_cohort_round_nodes`)."""
     cl = _check_closure(closure)
+    ncol = int(cl.colors or 1)
+    if ncol > 1:
+        P = st.shape[0] // ncol
+        cl1 = dataclasses.replace(cl, colors=1)
+        arrs = []
+        for j in range(ncol):
+            a, G = cohort_round(st[j * P:(j + 1) * P], G, aux, rules, Llen,
+                                cl1)
+            arrs.append(a)
+        return torch.cat(arrs, dim=0), G
+    nnodes = int(cl.nodes or 1)
+    if nnodes > 1:
+        return _cohort_round_nodes(st, G, aux, rules, Llen, cl, nnodes)
     out = [shift_push(t) for t in _round_payloads(st, aux, rules, Llen, cl)]
     arrivals = torch.stack(out, dim=0)
     return arrivals, G + arrivals[NSTATE:]
+
+
+def _cohort_round_nodes(st, G, aux, rules, Llen, cl, nnodes):
+    """N-node mixture transit (node_rule="face"): the state carries
+    `nnodes` full ensembles per cell ([node0 moments + carried, node1
+    ...]); each advances with the single-ensemble physics, and arrivals
+    go to a node by the face they entered through: nodes=2 separates
+    x-crossers from y-crossers, nodes=4 every face.
+
+    Summation order (the CUDA kernel's too): each face's payloads are
+    summed over the source nodes in node order before the push, a None
+    (structural zero) payload skipped; a node whose faces are all None
+    receives zeros; deposits are G + (node 0 + node 1 + ...)."""
+    P = st.shape[0] // nnodes
+    gens = [_round_payloads(st[j * P:(j + 1) * P], aux, rules, Llen, cl)
+            for j in range(nnodes)]
+
+    def nadd(a, b):
+        if a is None:
+            return b
+        if b is None:
+            return a
+        return a + b
+
+    Z = torch.zeros_like(st[0])
+
+    def pz(t):
+        return Z if all(p is None for p in t) else shift_push(t)
+
+    outs = [[] for _ in range(nnodes)]
+    for ts in zip(*gens):
+        xp, xn, yp, yn = ts[0]
+        for t in ts[1:]:
+            xp = nadd(xp, t[0])
+            xn = nadd(xn, t[1])
+            yp = nadd(yp, t[2])
+            yn = nadd(yn, t[3])
+        if nnodes == 2:
+            outs[0].append(pz((xp, xn, None, None)))
+            outs[1].append(pz((None, None, yp, yn)))
+        else:
+            outs[0].append(pz((xp, None, None, None)))
+            outs[1].append(pz((None, xn, None, None)))
+            outs[2].append(pz((None, None, yp, None)))
+            outs[3].append(pz((None, None, None, yn)))
+    arrivals = torch.stack([c for o in outs for c in o], dim=0)
+    dep = torch.stack(outs[0][NSTATE:], dim=0)
+    for j in range(1, nnodes):
+        dep = dep + torch.stack(outs[j][NSTATE:], dim=0)
+    return arrivals, G + dep
 
 
 def _round_payloads(st, aux, rules, Llen, cl):
@@ -467,24 +549,31 @@ def as_stack(x):
 
 
 def n_deposits(S, closure=None):
-    """Deposit-channel count C of an S-channel cohort state (one ensemble
-    of NSTATE moments + C carried totals)."""
-    _check_closure(closure)
-    if S <= NSTATE:
+    """Deposit-channel count C of an S-channel cohort state: colors x
+    nodes ensembles of NSTATE moments + C carried totals."""
+    cl = _check_closure(closure)
+    groups = int(cl.nodes or 1) * int(cl.colors or 1)
+    per, rem = divmod(S, groups)
+    if rem or per <= NSTATE:
         raise ValueError(
-            f"cohort state of {S} channels is not NSTATE={NSTATE} moments "
-            f"+ carried totals"
+            f"cohort state of {S} channels is not {cl.colors} colors x "
+            f"{cl.nodes} nodes of NSTATE={NSTATE} moments + carried totals"
         )
-    return S - NSTATE
+    return per - NSTATE
 
 
 def carried_live(ST, closure=None):
-    """Per-deposit-channel live carried mass: sum over cells of
-    |carried|, (C,) float32. For contractive rules `carried_live *
-    rounds_remaining` bounds the remaining deposits; for others only
-    live == 0 does (see `tail_converged`)."""
-    n_deposits(ST.shape[0], closure)
-    return torch.sum(torch.abs(ST[NSTATE:]), dim=(1, 2))
+    """Per-deposit-channel live carried mass: sum over ensembles (nodes
+    and colors, in order) and cells of |carried|, (C,) float32. For
+    contractive rules `carried_live * rounds_remaining` bounds the
+    remaining deposits; for others only live == 0 does (see
+    `tail_converged`)."""
+    P = NSTATE + n_deposits(ST.shape[0], closure)
+    live = None
+    for j in range(ST.shape[0] // P):
+        s = torch.sum(torch.abs(ST[j * P + NSTATE:(j + 1) * P]), dim=(1, 2))
+        live = s if live is None else live + s
+    return live
 
 
 def deposit_gauge(G):
@@ -533,9 +622,19 @@ def cohort_advance_reference(st0, aux, rules, iters, Llen, *, closure=None,
 # CUDA kernel path (csrc/cohort_round.cu)
 # ---------------------------------------------------------------------------
 
-# Kernel launches per rule set: one per round, counted where the wrapper
-# launches the kernel and nowhere else.
-cohort_round_launches = {"fluvial": 0, "debris": 0}
+# Kernel launches per rule set and node count (key "fluvial", "debris",
+# "fluvial,nodes=4", ...; see `launch_key`): one per round and color group,
+# counted where the wrapper launches the kernel and nowhere else.
+cohort_round_launches = {
+    k if n == 1 else f"{k},nodes={n}": 0
+    for k in ("fluvial", "debris") for n in (1, 2, 4)
+}
+
+
+def launch_key(kind, nodes=1):
+    """The `cohort_round_launches` key of a rule kind and node count."""
+    return kind if nodes == 1 else f"{kind},nodes={nodes}"
+
 
 _RULE_KINDS = {"fluvial": 0, "debris": 1}
 
@@ -568,7 +667,7 @@ def _cohort_lib():
     lib = _native.load("cohort_round")
     fn = lib.cohort_round_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(_CohortParams),
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p]
@@ -576,20 +675,23 @@ def _cohort_lib():
     return fn
 
 
-def cohort_round_cuda(st, aux, G, rules, Llen, out=None):
-    """One cohort round on the card: the Hopper kernel reads `st` (S, W,
-    H), `aux` (4, W, H) and `G` (C, W, H), writes the next state into
-    `out` (allocated when None) and adds the carried arrivals into `G` in
-    place. Returns `out`."""
+def cohort_round_cuda(st, aux, G, rules, Llen, out=None, nodes=1):
+    """One cohort round of one color group on the card: the Hopper kernel
+    reads `st` (S, W, H) with S = nodes x (NSTATE + C), `aux` (4, W, H)
+    and `G` (C, W, H), writes the next state into `out` (allocated when
+    None) and adds the carried arrivals into `G` in place. `nodes` > 1
+    is the face-routed N-node mixture. Returns `out`."""
     kind = getattr(rules, "kind", None)
     if kind not in _RULE_KINDS:
         raise NotImplementedError(
             f"the cohort kernel runs the fluvial and debris rule sets of "
             f"this package only; got rules of kind {kind!r}"
         )
+    if nodes not in (1, 2, 4):
+        raise ValueError(f"nodes must be 1, 2 or 4, got {nodes}")
     albedo = bool(rules.albedo_on)
     C = len(rules.classes)
-    S = NSTATE + C
+    S = nodes * (NSTATE + C)
     for name, t, ch in (("st", st, S), ("aux", aux, 4), ("G", G, C)):
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -600,7 +702,8 @@ def cohort_round_cuda(st, aux, G, rules, Llen, out=None):
         if t.dim() != 3 or t.shape[0] != ch:
             raise ValueError(
                 f"{name} must be ({ch}, W, H) for {kind} rules with "
-                f"albedo {'on' if albedo else 'off'}, got {tuple(t.shape)}"
+                f"albedo {'on' if albedo else 'off'} and {nodes} node(s), "
+                f"got {tuple(t.shape)}"
             )
     W, H = st.shape[1], st.shape[2]
     if aux.shape[1:] != st.shape[1:] or G.shape[1:] != st.shape[1:]:
@@ -613,25 +716,29 @@ def cohort_round_cuda(st, aux, G, rules, Llen, out=None):
     fn = _cohort_lib()
     stream = torch.cuda.current_stream(st.device).cuda_stream
     with torch.cuda.device(st.device):
-        err = fn(_RULE_KINDS[kind], int(albedo), ctypes.byref(params),
-                 st.data_ptr(), aux.data_ptr(), G.data_ptr(), out.data_ptr(),
-                 stream)
+        err = fn(_RULE_KINDS[kind], int(albedo), int(nodes),
+                 ctypes.byref(params), st.data_ptr(), aux.data_ptr(),
+                 G.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"cohort_round kernel launch failed: CUDA error "
                            f"{err}")
-    cohort_round_launches[kind] += 1
+    cohort_round_launches[launch_key(kind, nodes)] += 1
     return out
 
 
 def cohort_advance_cuda(st, aux, rules, iters, Llen, tol=0.0, closure=None):
-    """`iters` cohort rounds on the card, one kernel launch per round with
-    ping-pong state buffers; deposits accumulate in place. `tol` > 0 reads
-    the adaptive exit criterion every TOL_CHECK_ROUNDS rounds (one host
-    read each). Returns (advanced state, deposits)."""
-    _check_closure(closure)
+    """`iters` cohort rounds on the card with ping-pong state buffers;
+    deposits accumulate in place. Each round launches the kernel once per
+    color group (`closure.colors`), in color order, into the same
+    deposits: the order of the plain batched round. `tol` > 0 reads the
+    adaptive exit criterion every TOL_CHECK_ROUNDS rounds (one host read
+    each). Returns (advanced state, deposits)."""
+    cl = _check_closure(closure)
     st = as_stack(st).contiguous()
     aux = as_stack(aux).contiguous()
-    C = n_deposits(st.shape[0], closure)
+    C = n_deposits(st.shape[0], cl)
+    ncol, nnodes = int(cl.colors or 1), int(cl.nodes or 1)
+    P = st.shape[0] // ncol
     G = torch.zeros((C,) + tuple(st.shape[1:]), dtype=torch.float32,
                     device=st.device)
     contractive = bool(getattr(rules, "contractive", False))
@@ -639,13 +746,18 @@ def cohort_advance_cuda(st, aux, rules, iters, Llen, tol=0.0, closure=None):
     bufs = [torch.empty_like(st), None]
     for i in range(int(iters)):
         if (tol and tol > 0.0 and i % TOL_CHECK_ROUNDS == 0
-                and bool(tail_converged(carried_live(st), deposit_gauge(G),
-                                        float(iters) - i, tol,
-                                        contractive))):
+                and bool(tail_converged(carried_live(st, cl),
+                                        deposit_gauge(G), float(iters) - i,
+                                        tol, contractive))):
             break
         if bufs[i % 2] is None:
             bufs[i % 2] = torch.empty_like(st)
-        st = cohort_round_cuda(st, aux, G, rules, Llen, out=bufs[i % 2])
+        out = bufs[i % 2]
+        for j in range(ncol):
+            g = slice(j * P, (j + 1) * P)
+            cohort_round_cuda(st[g], aux, G, rules, Llen, out=out[g],
+                              nodes=nnodes)
+        st = out
     return st, G
 
 

@@ -319,3 +319,106 @@ def test_accumulate_on_card_matches_plain_and_doubling(case, W, H):
     assert gt.tile_launches["local"] > n0
     roots = g < 0
     assert abs(float(area[roots].double().sum()) - W * H) <= 1e-4 * W * H
+
+
+# ---------------------------------------------------------------------------
+# The quality closures through the cohort kernel (NODES = 2 and 4; colors
+# as one launch per color group) and the FP32 probe (csrc/fp32_chain.cu).
+# ---------------------------------------------------------------------------
+
+
+def node_state(kind, albedo, nodes, W, H, seed=0):
+    """A node-stacked cohort state, one seeded ensemble per node, and the
+    first ensemble's aux."""
+    sts = [cohort_arrays(kind, albedo, W, H, seed + 10 * j)
+           for j in range(nodes)]
+    return np.concatenate([s for s, _ in sts]), sts[0][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,albedo", CASES)
+@pytest.mark.parametrize("nodes", [2, 4])
+@pytest.mark.parametrize("W,H", [(64, 64), (200, 72)])
+def test_nodes_kernel_matches_plain_on_card(kind, albedo, nodes, W, H):
+    """The face-routed N-node round: one round (state and deposits) and
+    16 rounds (deposits) against the plain nodes round, on a square grid
+    and on one that is not a multiple of the tile; one launch per
+    round."""
+    st, aux = _on_card(*node_state(kind, albedo, nodes, W, H, seed=7))
+    tr = port_rules(kind, albedo, W, H)
+    cl = soil.CohortClosure(nodes=nodes)
+    C = cohort.n_deposits(st.shape[0], cl)
+    G = torch.zeros((C,) + tuple(st.shape[1:]), device="cuda")
+    key = cohort.launch_key(kind, nodes)
+    n0 = cohort.cohort_round_launches[key]
+    st_k = cohort.cohort_round_cuda(st, aux, G, tr, LLEN, nodes=nodes)
+    st_p, G_p = cohort.cohort_round(st, torch.zeros_like(G), aux, tr, LLEN,
+                                    cl)
+    _close(st_k, st_p, 2e-6, 1e-5, "state")
+    _close(G, G_p, 2e-6, 1e-5, "deposits")
+    _, g_k = cohort.cohort_advance_cuda(st, aux, tr, 16, LLEN, closure=cl)
+    _, g_p = cohort.cohort_advance_reference(st, aux, tr, 16, LLEN,
+                                             closure=cl)
+    _close(g_k, g_p, 2e-5, 1e-5, "16-round deposits")
+    assert cohort.cohort_round_launches[key] == n0 + 17
+
+
+@pytest.mark.cuda
+def test_colored_chunks_on_card_match_batched_plain(monkeypatch):
+    """A colored solve (nodes=4, colors=4, hash rule) through the kernel
+    in two chunks of two color groups against the plain rounds with all
+    four colors batched into one solve, both on the card; the kernel
+    launches once per color group and round."""
+    from soillib_tpu_torch.core.halo import NO_HALO
+
+    _needs_card()
+    W, H, iters = 48, 40, 12
+    st0, aux = cohort_arrays("fluvial", True, W, H, seed=9)
+    speed = np.random.default_rng(9).normal(size=(2, W, H)).astype(
+        np.float32)
+    w0, carried = (torch.from_numpy(st0[0]).cuda(),
+                   [torch.from_numpy(c).cuda() for c in st0[cohort.NSTATE:]])
+    sp, ax = torch.from_numpy(speed).cuda(), torch.from_numpy(aux).cuda()
+    tr = port_rules("fluvial", True, W, H)
+    cl = soil.CohortClosure(nodes=4, colors=4, color_rule="hash")
+    chunks = []
+
+    def two(M, *args):
+        chunks.append(M // 2)
+        return M // 2
+
+    monkeypatch.setattr(erosion, "color_chunk", two)
+    n0 = cohort.cohort_round_launches["fluvial,nodes=4"]
+    got = erosion._run_cohort_colored(NO_HALO, w0, sp, carried, ax, tr,
+                                      iters, LLEN, cl)
+    assert chunks == [2]
+    assert cohort.cohort_round_launches["fluvial,nodes=4"] == n0 + 4 * iters
+
+    def plain(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
+        return cohort.cohort_advance_reference(
+            cohort.as_stack(st0), cohort.as_stack(aux), rules, int(iters),
+            Llen, closure=closure, tol=tol)[1]
+
+    monkeypatch.setattr(erosion, "color_chunk", lambda M, *args: M)
+    monkeypatch.setattr(cohort, "run_cohort", plain)
+    want = erosion._run_cohort_colored(NO_HALO, w0, sp, carried, ax, tr,
+                                       iters, LLEN, cl)
+    _close(got, want, 2e-5, 1e-5, "colored deposits")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["fma", "fma2", "exp", "div", "sqrt"])
+def test_probe_kernel_matches_plain_on_card(op):
+    """Each op of the FP32 probe against its plain chains at 4 rounds
+    (rtol 1e-5: the plain fma rounds twice, through float64); one launch
+    counted per call."""
+    from soillib_tpu_torch.ops import fp32_chain
+
+    _needs_card()
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        0.25, 1.0, 4096 + 37).astype(np.float32)).cuda()
+    n0 = fp32_chain.fp32_chain_launches[op]
+    got = fp32_chain.chain_cuda(x, op, 4)
+    assert fp32_chain.fp32_chain_launches[op] == n0 + 1
+    want = fp32_chain.chain_plain(x, op, 4)
+    _close(got, want, 1e-5, 0.0, op)

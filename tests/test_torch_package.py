@@ -44,12 +44,16 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
 @pytest.mark.parametrize("field,value", [
     ("offsets", False), ("offstep", "stream"), ("offstep", False),
     ("vdist", "uniform"), ("xmom", True), ("perstream", True),
-    ("nodes", 2), ("colors", 4),
+    ("node_rule", "sign"), ("node_rule", "cluster"),
 ])
 def test_non_default_closure_raises(field, value):
+    """The closure variants that are not ported raise; the node rules
+    other than "face" with nodes=4 (nodes and colors themselves are
+    ported: tests/test_torch_quality.py)."""
     p = soil.ErosionParams()
     p.transportIterations = 2
-    p.closure = soil.CohortClosure(**{field: value})
+    nodes = {"nodes": 4} if field == "node_rule" else {}
+    p.closure = soil.CohortClosure(**{field: value}, **nodes)
     p.closureDebris = "same"
     st = soil.ErosionState.zeros((8, 8), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -100,11 +104,11 @@ def test_sources_import_neither_jax_nor_the_jax_package():
 
 
 def test_every_kernel_source_is_built():
-    """One library per csrc/*.cu; the three kernels of the port."""
+    """One library per csrc/*.cu; the four kernel sources of the port."""
     from soillib_tpu_torch import _native
 
-    assert _native.sources() == ["cohort_round", "tile_accumulate",
-                                 "transport_sweep"]
+    assert _native.sources() == ["cohort_round", "fp32_chain",
+                                 "tile_accumulate", "transport_sweep"]
 
 
 def test_cpu_tensors_take_the_plain_rounds():
