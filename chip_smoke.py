@@ -201,8 +201,7 @@ def phase_main_path(n=4096, steps=3, iters=32):
     scale = (0.1, 0.1, 4.0)
     state = soil.ErosionState.zeros((n, n), height=terrain(n, 7))
     sim = soil.ErosionSim((n, n), scale, p, state=state)
-    for k in cohort.cohort_round_launches:
-        cohort.cohort_round_launches[k] = 0
+    zero_counts(cohort.cohort_round_launches, cohort.cohort_rounds)
     times = []
     for _ in range(steps):
         torch.cuda.synchronize()
@@ -211,14 +210,20 @@ def phase_main_path(n=4096, steps=3, iters=32):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = nonzero(cohort.cohort_round_launches)
+    rounds = nonzero(cohort.cohort_rounds)
     finite_state(sim.state, f"{n}^2 erode")
     if (tuple(sim.state.layers.shape) != (2, n, n)
             or tuple(sim.state.discharge.shape) != (n, n)):
         raise AssertionError("erode changed the state's shapes")
     want = steps * iters
-    if launches != {"fluvial": want, "debris": want}:
-        raise AssertionError(f"launches {launches}, expected {want} per "
-                             f"rule set ({steps} steps x {iters} rounds)")
+    split = steps * len(cohort.launch_rounds(iters,
+                                             cohort.ROUNDS_PER_LAUNCH))
+    if (rounds != {"fluvial": want, "debris": want}
+            or launches != {"fluvial": split, "debris": split}):
+        raise AssertionError(
+            f"rounds {rounds} in launches {launches}, expected {want} "
+            f"rounds in {split} launches per rule set ({steps} steps x "
+            f"{iters} rounds)")
     return sim, times, launches
 
 
@@ -244,27 +249,75 @@ def capture_solves(sim):
     return captured
 
 
-def ops_per_cell(rules, st, aux, Llen, closure=None):
-    """Elementwise operations of one plain round per cell (unit weights),
-    counted by dispatching it on a 32^2 CPU copy of the inputs."""
-    import torch
+def ptxas_usage(kernel, kind, albedo, nodes=1):
+    """(registers, static shared bytes) that ptxas reported for one
+    instantiation of a cohort kernel, from the build log; None if the log
+    does not name it."""
+    import re
 
+    from soillib_tpu_torch import _native
+
+    tmpl = f"ILi{0 if kind == 'fluvial' else 1}ELb{int(albedo)}E" + (
+        f"Li{nodes}E" if nodes > 1 else "")
+    lines = _native.build_log("cohort_round").splitlines()
+    for i, line in enumerate(lines):
+        if f"{kernel}{tmpl}" in line and "Compiling entry" in line:
+            for used in lines[i + 1:i + 4]:
+                m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
+                              used)
+                if m:
+                    return int(m[1]), int(m[2] or 0)
+    return None
+
+
+def design_bytes_per_cell_round(geo, S, C):
+    """Device-memory bytes per owned cell and round of the kernel's own
+    design: every cell of a block (its ring included) reads the state and
+    aux once per launch, owned cells read and write the deposits and
+    write the state."""
+    cols, rows = geo.block
+    own = (geo.cluster * rows - 2 * geo.ring) * (cols - 2 * geo.ring)
+    cells = geo.cluster * rows * cols
+    return 4 * (cells * (S + 4) + own * (C + S + C)) / (own * geo.rounds)
+
+
+def set_round_bound(entry, ops_per_cell, bytes_per_cell_pass):
+    """The least time of one round at the entry's shape: the larger of
+    the weighted operations over the FP32 issue rate and the state, aux
+    and deposits moved once per K_ROUNDS_PER_PASS rounds (each read once,
+    each written once, as the reference's passes do) over the HBM rate.
+    Both hold whatever implements the round."""
     from soillib_tpu_torch import bench
-    from soillib_tpu_torch.ops import cohort
 
-    s = st[:, :32, :32].cpu()
-    a = aux[:, :32, :32].cpu()
-    G = torch.zeros((cohort.n_deposits(s.shape[0], closure), 32, 32))
-    counts = bench.count_round_ops(cohort.cohort_round, s, G, a, rules, Llen,
-                                   closure)
-    return sum(counts.values()) / (32 * 32)
+    cells = math.prod(entry["shape"][1:])
+    ops_ms = ops_per_cell * cells / PEAK_F32_PER_S * 1e3
+    bytes_ms = (bytes_per_cell_pass / bench.K_ROUNDS_PER_PASS * cells
+                / PEAK_BYTES_PER_S * 1e3)
+    entry.update(bound_ms=max(ops_ms, bytes_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                 ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
+                 ops_per_cell_round=ops_per_cell,
+                 bound_bytes_per_cell_pass=bytes_per_cell_pass)
+
+
+def cohort_bound(entry, costs):
+    """`set_round_bound` of a cohort entry: the reference round's
+    operations (bench.round_ops, weighted by the probe's costs) times the
+    nodes; 4 x ((S + 4 + C) + (S + C)) bytes per pass."""
+    from soillib_tpu_torch import bench
+
+    S, C, nodes = entry["shape"][0], entry["carried"], entry["nodes"]
+    ops = bench.round_ops(costs, entry["albedo"])[entry["kind"]] * nodes
+    set_round_bound(entry, ops, 4 * ((S + 4 + C) + (S + C)))
 
 
 def kernel_entry(kind, captured, launches):
     """One kernel's line of the report at the main path's inputs: the
-    kernel against the plain round on them (1 round: state and deposits,
-    rtol 2e-6 / atol 1e-5; 16 rounds: deposits, rtol 2e-5 / atol 1e-5),
-    then both timed."""
+    kernel against the plain round on them, bitwise (1 round: state and
+    deposits; 16 rounds through the wrapper's split: state and deposits),
+    then both timed, the kernel per round over launches of
+    ROUNDS_PER_LAUNCH rounds. The bound is set once the probe's costs
+    exist (`cohort_bound`)."""
     import torch
 
     from soillib_tpu_torch.ops import cohort
@@ -272,33 +325,36 @@ def kernel_entry(kind, captured, launches):
     st, aux, rules, Llen = captured[kind]
     S, W, H = st.shape
     C = S - cohort.NSTATE
-    saved = dict(cohort.cohort_round_launches)
+    K = cohort.ROUNDS_PER_LAUNCH
+    saved = dict(cohort.cohort_round_launches), dict(cohort.cohort_rounds)
     G = torch.zeros((C, W, H), device="cuda")
     st_k = cohort.cohort_round_cuda(st, aux, G, rules, Llen)
     st_p, G_p = cohort.cohort_round(st, torch.zeros_like(G), aux, rules,
                                     Llen)
     what = f"{kind} {S}x{W}x{H} main-path inputs"
-    err = max(check_close(f"{what}, 1-round state", st_k, st_p, 2e-6, 1e-5),
-              check_close(f"{what}, 1-round deposits", G, G_p, 2e-6, 1e-5))
+    err = max(bitwise_err(f"{what}, 1-round state", st_k, st_p),
+              bitwise_err(f"{what}, 1-round deposits", G, G_p))
     del st_k, st_p, G_p
-    _, g_k = cohort.cohort_advance_cuda(st, aux, rules, 16, Llen)
-    _, g_p = cohort.cohort_advance_reference(st, aux, rules, 16, Llen)
-    err16 = check_close(f"{what}, 16-round deposits", g_k, g_p, 2e-5, 1e-5)
-    del g_k, g_p
-    log(f"  {kind:7s} {S}x{W}x{H}: max abs err 1 round {err:.3e}; 16 rounds "
-        f"deposits {err16:.3e}")
+    st_k, g_k = cohort.cohort_advance_cuda(st, aux, rules, 16, Llen)
+    st_p, g_p = cohort.cohort_advance_reference(st, aux, rules, 16, Llen)
+    err16 = max(bitwise_err(f"{what}, 16-round state", st_k, st_p),
+                bitwise_err(f"{what}, 16-round deposits", g_k, g_p))
+    del st_k, g_k, st_p, g_p
+    log(f"  {kind:7s} {S}x{W}x{H}: 1 round and 16 rounds ({K} a launch) "
+        f"bitwise equal to the plain rounds")
     G.zero_()
     out = torch.empty_like(st)
-    ms = cuda_ms(lambda: cohort.cohort_round_cuda(st, aux, G, rules, Llen,
-                                                  out=out), 20)
+    ms = cuda_ms(lambda: cohort.cohort_rounds_cuda(st, aux, G, rules, Llen,
+                                                   K, out=out), 20) / K
+    ms_1 = cuda_ms(lambda: cohort.cohort_rounds_cuda(st, aux, G, rules, Llen,
+                                                     1, out=out), 20)
     plain_ms = cuda_ms(lambda: cohort.cohort_round(st, G, aux, rules, Llen),
                        3)
     # Launches made to compare and time the kernel do not count.
-    cohort.cohort_round_launches.update(saved)
-    nbytes = 4 * W * H * (S + 4 + C + S + C)
-    ops = ops_per_cell(rules, st, aux, Llen) * W * H
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_F32_PER_S * 1e3
+    cohort.cohort_round_launches.update(saved[0])
+    cohort.cohort_rounds.update(saved[1])
+    geo = cohort.kernel_geometry(C, 1, W, H, K)
+    usage = ptxas_usage("cohort_rounds_kernel", kind, rules.albedo_on)
     return {
         "name": f"cohort_round[{kind}]",
         "route": "cuda",
@@ -308,14 +364,23 @@ def kernel_entry(kind, captured, launches):
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": None,
+        "bound_by": None,
         "library_ms": None,
-        "bytes_bound_ms": bytes_ms,
         "shape": [S, W, H],
+        "kind": kind,
+        "albedo": bool(rules.albedo_on),
+        "nodes": 1,
+        "carried": C,
         "max_abs_err_16_rounds": err16,
-        "bytes_per_cell_round": nbytes // (W * H),
-        "ops_per_cell_round": ops / (W * H),
+        "rounds_per_launch": K,
+        "ms_per_round_at_1_round_a_launch": ms_1,
+        "tile": {"block": list(geo.block), "ring": geo.ring,
+                 "owned": [geo.block[1] - 2 * geo.ring,
+                           geo.block[0] - 2 * geo.ring]},
+        "registers": usage and usage[0],
+        "shared_bytes_per_block": geo.smem + (usage[1] if usage else 0),
+        "bytes_per_cell_round": design_bytes_per_cell_round(geo, S, C),
     }
 
 
@@ -362,15 +427,14 @@ def phase_faithful_depth(n=1024):
     run = cohort.run_cohort
 
     def spy(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
-        n0 = cohort.cohort_round_launches[rules.kind]
+        n0 = cohort.cohort_rounds[rules.kind]
         g = run(st0, aux, rules, iters, Llen, closure, tol)
         solves[rules.kind] = (cohort.as_stack(st0), cohort.as_stack(aux),
                               rules, int(iters), Llen, tol, g.clone(),
-                              cohort.cohort_round_launches[rules.kind] - n0)
+                              cohort.cohort_rounds[rules.kind] - n0)
         return g
 
-    for k in cohort.cohort_round_launches:
-        cohort.cohort_round_launches[k] = 0
+    zero_counts(cohort.cohort_round_launches, cohort.cohort_rounds)
     cohort.run_cohort = spy
     try:
         torch.cuda.synchronize()
@@ -381,9 +445,10 @@ def phase_faithful_depth(n=1024):
     finally:
         cohort.run_cohort = run
     finite_state(st, f"{n}^2 faithful-depth erode")
-    rounds = nonzero(cohort.cohort_round_launches)
+    rounds = nonzero(cohort.cohort_rounds)
     log(f"  {n}^2 transportTol=1e-6, bound {p.maxage - 2} rounds: rounds "
-        f"run {rounds}; step {ms:.1f} ms")
+        f"run {rounds} in launches "
+        f"{nonzero(cohort.cohort_round_launches)}; step {ms:.1f} ms")
 
     plain_round = cohort.cohort_round
     for kind in ("fluvial", "debris"):
@@ -415,7 +480,7 @@ def phase_faithful_depth(n=1024):
 
 
 def phase_breakdown(sim, kernels=(("cohort_kernel_ms",
-                                   "cohort_round_kernel"),)):
+                                   "cohort_rounds_kernel"),)):
     """Device time of one more step of `sim` by kernel, from
     torch.profiler: each (label, kernel name) of `kernels`, the rest (the
     plain torch glue) and the device's idle share of the step's wall
@@ -711,16 +776,10 @@ def sweep_entry(name, calls, launches, rounds=16):
     G = torch.rand_like(E)
     plain_ms = cuda_ms(lambda: sweep.upwind_push_cf(att * (E + G), vx, vy), 5)
     sweep.sweep_launches.update(saved)
-    nbytes = (4 * C + 2) * 4 * W * H
-    # Per cell: four donor weights (2 abs, add, select, divide, select
-    # each); per channel and donor e + g, att *, * weight; 3 adds.
-    ops = (24 + 15 * C) * W * H
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_F32_PER_S * 1e3
     log(f"  {name} {C}x{W}x{H}: 1 and {rounds} rounds "
         f"{'bitwise equal' if bitwise else 'within rtol 2e-6'} "
         f"(max abs err {max(errs):.3e}); {ms:.4f} ms/launch, plain round "
-        f"{plain_ms:.3f} ms, bound {max(bytes_ms, ops_ms):.4f} ms")
+        f"{plain_ms:.3f} ms")
     return {
         "name": name,
         "route": "cuda",
@@ -730,14 +789,23 @@ def sweep_entry(name, calls, launches, rounds=16):
         "max_abs_err": max(errs),
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": None,
+        "bound_by": None,
         "library_ms": None,
-        "bytes_bound_ms": bytes_ms,
         "shape": [C, W, H],
         "bitwise": bitwise,
-        "bytes_per_cell_round": nbytes // (W * H),
+        # One round per launch: E, att and G in, G out, vx and vy.
+        "bytes_per_cell_round": (4 * C + 2) * 4,
     }
+
+
+def sweep_bound(entry, costs):
+    """`set_round_bound` of a sweep entry. Per cell and round: four donor
+    weights (2 abs, add, select, divide, select each; the division
+    weighted by its cost) and, per channel and donor, e + g, att *,
+    * weight, then 3 adds; E, att and G in, G out, vx and vy per pass."""
+    C = entry["shape"][0]
+    set_round_bound(entry, 20 + 4 * costs["div"] + 15 * C, (4 * C + 2) * 4)
 
 
 def solve_uniform_check(n=1024, seed=19):
@@ -788,7 +856,8 @@ def phase_field_static(n=4096, steps=3, iters=32):
     p.transportMethod = "field-static"
     state = soil.ErosionState.zeros((n, n), height=terrain(n, 23))
     sim = soil.ErosionSim((n, n), (0.1, 0.1, 4.0), p, state=state)
-    zero_counts(sweep.sweep_launches, cohort.cohort_round_launches)
+    zero_counts(sweep.sweep_launches, cohort.cohort_round_launches,
+                cohort.cohort_rounds)
     times = []
     with Spy(sweep, "transport_advance_cuda") as sw:
         for _ in range(steps):
@@ -796,11 +865,13 @@ def phase_field_static(n=4096, steps=3, iters=32):
             times.append(ms)
     launches = nonzero({"sweep": sweep.sweep_launches["round"],
                         **cohort.cohort_round_launches})
+    rounds = nonzero(cohort.cohort_rounds)
     finite_state(sim.state, f"{n}^2 field-static erode")
-    want = {"sweep": steps * iters, "debris": steps * iters}
-    if launches != want:
-        raise AssertionError(f"field-static launches {launches}, expected "
-                             f"{want}")
+    want = {"sweep": steps * iters, "debris": steps * len(
+        cohort.launch_rounds(iters, cohort.ROUNDS_PER_LAUNCH))}
+    if launches != want or rounds != {"debris": steps * iters}:
+        raise AssertionError(f"field-static launches {launches} (cohort "
+                             f"rounds {rounds}), expected {want}")
     if sw.calls[0][0][1].shape[0] != 7:
         raise AssertionError("field-static sweep is not C = 7")
     log(f"  step ms {[round(t, 1) for t in times]}; steps 2-3 mean "
@@ -919,7 +990,8 @@ def phase_bench(n=4096, steps=8):
     keys = {"metric", "value", "unit", "vs_baseline", "hbm_sol",
             "compute_sol", "bw_bytes_per_s", "bytes_per_cell_step",
             "fp32_ops_per_s", "fp32_ops_per_cell_step", "device"}
-    zero_counts(fc.fp32_chain_launches, cohort.cohort_round_launches)
+    zero_counts(fc.fp32_chain_launches, cohort.cohort_round_launches,
+                cohort.cohort_rounds)
     out = {}
     for iters in ("32", "auto"):
         line, ms = timed(lambda: bench.main(
@@ -996,16 +1068,13 @@ def phase_quality_erode_check(n=256, steps=2, iters=32):
 
     p = quality_params(iters)
     h = terrain(n, 31)
-    zero_counts(cohort.cohort_round_launches)
+    zero_counts(cohort.cohort_round_launches, cohort.cohort_rounds)
     got = soil.erode(soil.ErosionState.zeros((n, n), height=h), (0.1, 0.1,
                                                                  4.0), p,
                      steps=steps)
     launches = nonzero(cohort.cohort_round_launches)
-    want_launches = {"fluvial,nodes=4": steps * iters * 8,
-                     "debris": steps * iters}
-    if launches != want_launches:
-        raise AssertionError(f"quality erode launches {launches}, expected "
-                             f"{want_launches}")
+    check_quality_counts(launches, nonzero(cohort.cohort_rounds), steps,
+                         iters, "quality erode")
     run = cohort.run_cohort
 
     def plain(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
@@ -1030,6 +1099,20 @@ def phase_quality_erode_check(n=256, steps=2, iters=32):
         f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}; "
         f"launches {launches}")
     return errs
+
+
+def check_quality_counts(launches, rounds, steps, iters, what):
+    """A quality solve's counts: the fluvial NODES=4 kernel runs one round
+    per launch and color group (8), the debris solve (default closure)
+    ROUNDS_PER_LAUNCH rounds a launch."""
+    from soillib_tpu_torch.ops import cohort
+
+    split = len(cohort.launch_rounds(iters, cohort.ROUNDS_PER_LAUNCH))
+    want_r = {"fluvial,nodes=4": steps * iters * 8, "debris": steps * iters}
+    want_l = {"fluvial,nodes=4": steps * iters * 8, "debris": steps * split}
+    if rounds != want_r or launches != want_l:
+        raise AssertionError(f"{what}: rounds {rounds} in launches "
+                             f"{launches}, expected {want_r} in {want_l}")
 
 
 class CaptureFirstGroup:
@@ -1078,7 +1161,7 @@ def phase_quality(n=4096, steps=2, iters=32):
     p = quality_params(iters)
     state = soil.ErosionState.zeros((n, n), height=terrain(n, 37))
     sim = soil.ErosionSim((n, n), (0.1, 0.1, 4.0), p, state=state)
-    zero_counts(cohort.cohort_round_launches)
+    zero_counts(cohort.cohort_round_launches, cohort.cohort_rounds)
     torch.cuda.reset_peak_memory_stats()
     times = []
     with Spy(erosion, "color_chunk") as chunk, \
@@ -1089,9 +1172,8 @@ def phase_quality(n=4096, steps=2, iters=32):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = nonzero(cohort.cohort_round_launches)
     finite_state(sim.state, f"{n}^2 quality erode")
-    want = {"fluvial,nodes=4": steps * iters * 8, "debris": steps * iters}
-    if launches != want:
-        raise AssertionError(f"quality launches {launches}, expected {want}")
+    check_quality_counts(launches, nonzero(cohort.cohort_rounds), steps,
+                         iters, "quality")
     chunks = [out for _, out in chunk.calls]
     log(f"  step ms {[round(t, 1) for t in times]}; launches {launches}; "
         f"color groups per chunk, by step: {chunks} of 8 (68 channels "
@@ -1102,10 +1184,10 @@ def phase_quality(n=4096, steps=2, iters=32):
 def nodes_entry(captured, launches, crop=2048, rounds=16):
     """The NODES=4 kernel's line of the report. Timed at the path's own
     n^2 inputs (one color group, 68 channels); held against the plain
-    nodes round on a crop^2 corner of them (1 round: state and deposits,
-    rtol 2e-6 / atol 1e-5; `rounds` rounds: deposits, rtol 2e-5 / atol
-    1e-5), where the plain round's temporaries (about 15 times the state)
-    fit beside the path's buffers."""
+    nodes round on a crop^2 corner of them (1 round: state and deposits
+    bitwise; `rounds` rounds: deposits, rtol 2e-5 / atol 1e-5), where the
+    plain round's temporaries (about 15 times the state) fit beside the
+    path's buffers. The bound is set once the probe's costs exist."""
     import torch
 
     import soillib_tpu_torch as soil
@@ -1115,7 +1197,7 @@ def nodes_entry(captured, launches, crop=2048, rounds=16):
     cl = soil.CohortClosure(nodes=4)
     S, W, H = st.shape
     C = cohort.n_deposits(S, cl)
-    saved = dict(cohort.cohort_round_launches)
+    saved = dict(cohort.cohort_round_launches), dict(cohort.cohort_rounds)
     G = torch.zeros((C, W, H), device="cuda")
     out = torch.empty_like(st)
     ms = cuda_ms(lambda: cohort.cohort_round_cuda(st, aux, G, rules, Llen,
@@ -1128,9 +1210,8 @@ def nodes_entry(captured, launches, crop=2048, rounds=16):
     st_p, G_p = cohort.cohort_round(sc, torch.zeros_like(Gc), ac, rules,
                                     Llen, cl)
     what = f"fluvial nodes=4 {S}x{crop}x{crop} crop of the path's inputs"
-    err = max(check_close(f"{what}, 1-round state", st_k, st_p, 2e-6, 1e-5),
-              check_close(f"{what}, 1-round deposits", Gc, G_p, 2e-6, 1e-5))
-    bitwise = torch.equal(st_k, st_p) and torch.equal(Gc, G_p)
+    err = max(bitwise_err(f"{what}, 1-round state", st_k, st_p),
+              bitwise_err(f"{what}, 1-round deposits", Gc, G_p))
     del st_k, st_p, G_p
     _, g_k = cohort.cohort_advance_cuda(sc, ac, rules, rounds, Llen,
                                         closure=cl)
@@ -1138,22 +1219,23 @@ def nodes_entry(captured, launches, crop=2048, rounds=16):
                                              closure=cl)
     err16 = check_close(f"{what}, {rounds}-round deposits", g_k, g_p, 2e-5,
                         1e-5)
+    bitwise16 = torch.equal(g_k, g_p)
     del g_k, g_p
     Gc.zero_()
     crop_ms = cuda_ms(lambda: cohort.cohort_round_cuda(sc, ac, Gc, rules,
                                                        Llen, nodes=4), 10)
     plain_ms = cuda_ms(lambda: cohort.cohort_round(sc, Gc, ac, rules, Llen,
                                                    cl), 3)
-    cohort.cohort_round_launches.update(saved)
-    nbytes = 4 * W * H * (S + 4 + C + S + C)
-    ops = ops_per_cell(rules, st, aux, Llen, cl) * W * H
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_F32_PER_S * 1e3
-    log(f"  {what}: 1 round {'bitwise equal' if bitwise else 'within rtol'}"
-        f" (max abs err {err:.3e}); {rounds} rounds deposits max abs err "
-        f"{err16:.3e}; kernel {ms:.3f} ms/launch at {W}x{H} ({crop_ms:.3f} "
-        f"at the crop), plain round at the crop {plain_ms:.2f} ms, bound "
-        f"{max(bytes_ms, ops_ms):.3f} ms")
+    cohort.cohort_round_launches.update(saved[0])
+    cohort.cohort_rounds.update(saved[1])
+    geo = cohort.kernel_geometry(C, 4, W, H)
+    usage = ptxas_usage("cohort_round_nodes_kernel", "fluvial",
+                        rules.albedo_on, 4)
+    log(f"  {what}: 1 round bitwise equal; {rounds} rounds deposits "
+        f"{'bitwise equal' if bitwise16 else 'within rtol 2e-5'} (max abs "
+        f"err {err16:.3e}); kernel {ms:.3f} ms/launch at {W}x{H} "
+        f"({crop_ms:.3f} at the crop), plain round at the crop "
+        f"{plain_ms:.2f} ms")
     return {
         "name": "cohort_round[fluvial,nodes=4]",
         "route": "cuda",
@@ -1163,17 +1245,26 @@ def nodes_entry(captured, launches, crop=2048, rounds=16):
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": None,
+        "bound_by": None,
         "library_ms": None,
-        "bytes_bound_ms": bytes_ms,
         "shape": [S, W, H],
+        "kind": "fluvial",
+        "albedo": bool(rules.albedo_on),
+        "nodes": 4,
+        "carried": C,
         "plain_shape": [S, crop, crop],
         "ms_at_plain_shape": crop_ms,
-        "bitwise_1_round": bitwise,
+        "bitwise_1_round": True,
         "max_abs_err_16_rounds": err16,
-        "bytes_per_cell_round": nbytes // (W * H),
-        "ops_per_cell_round": ops / (W * H),
+        "rounds_per_launch": 1,
+        "tile": {"block": list(geo.block), "ring": geo.ring,
+                 "cluster": geo.cluster,
+                 "owned": [geo.cluster * geo.block[1] - 2,
+                           geo.block[0] - 2]},
+        "registers": usage and usage[0],
+        "shared_bytes_per_block": geo.smem + (usage[1] if usage else 0),
+        "bytes_per_cell_round": design_bytes_per_cell_round(geo, S, C),
     }
 
 
@@ -1228,10 +1319,12 @@ def main():
     entries = [kernel_entry(k, captured, launches)
                for k in ("fluvial", "debris")]
     for e in entries:
-        log(f"  {e['name']}: {e['ms']:.3f} ms/launch, plain "
-            f"{e['plain_ms']:.2f} ms, bound {e['bound_ms']:.3f} ms "
-            f"({e['bound_by']}: {e['bytes_per_cell_round']} B, "
-            f"{e['ops_per_cell_round']:.0f} ops per cell-round)")
+        log(f"  {e['name']}: {e['ms']:.3f} ms/round at "
+            f"{e['rounds_per_launch']} rounds a launch "
+            f"({e['ms_per_round_at_1_round_a_launch']:.3f} at 1), plain "
+            f"{e['plain_ms']:.2f} ms; {e['registers']} registers, "
+            f"{e['shared_bytes_per_block']} B shared a block, "
+            f"{e['bytes_per_cell_round']:.1f} B per cell-round")
 
     log("phase 6: DEM path 4096^2 (fill, steepest, accumulate x2, "
         "gradient, solve_uniform 8192 rounds)")
@@ -1252,7 +1345,7 @@ def main():
     del fs_calls
     log("where the time goes: one profiled 4096^2 field-static step")
     phase_breakdown(fs_sim, (("sweep_kernel_ms", "transport_round_kernel"),
-                             ("cohort_kernel_ms", "cohort_round_kernel")))
+                             ("cohort_kernel_ms", "cohort_rounds_kernel")))
     del fs_sim
 
     log("phase 9: noise 4096^2 on the card vs the CPU")
@@ -1277,11 +1370,22 @@ def main():
     log("where the time goes: one profiled 4096^2 quality step")
     phase_breakdown(q_sim, (("cohort_nodes_kernel_ms",
                              "cohort_round_nodes_kernel"),
-                            ("cohort_kernel_ms", "cohort_round_kernel")))
+                            ("cohort_kernel_ms", "cohort_rounds_kernel")))
     del q_sim
     torch.cuda.empty_cache()
     entries.append(nodes_entry(q_captured, q_launches))
     del q_captured
+
+    # The round bounds weigh exp, division and sqrt by the probe's costs.
+    costs = probe["fp32"]["costs"]
+    for e in entries:
+        if e["name"].startswith("cohort_round"):
+            cohort_bound(e, costs)
+        elif e["name"].startswith("transport_sweep"):
+            sweep_bound(e, costs)
+        log(f"  {e['name']}: {e['ms']:.4f} ms against a bound of "
+            f"{e['bound_ms']:.4f} ms ({e['bound_by']}), "
+            f"{e['bound_ms'] / e['ms']:.0%} of it")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}))

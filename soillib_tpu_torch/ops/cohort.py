@@ -31,11 +31,12 @@ channels, color-major.
 
 Two execution paths, chosen by the tensors' device in `run_cohort`:
   * CPU tensors: `cohort_advance_reference`, one plain round at a time.
-  * CUDA tensors: `cohort_advance_cuda`, one launch of the hand-written
-    Hopper kernel (csrc/cohort_round.cu) per round and color group, the
-    groups in order into the same deposits. It takes the rule sets this
-    package defines (`rules.kind` "fluvial" or "debris") and raises on
-    anything else.
+  * CUDA tensors: `cohort_advance_cuda`, the hand-written Hopper kernels
+    (csrc/cohort_round.cu): one-node, one-color solves run
+    ROUNDS_PER_LAUNCH rounds per launch; node and color solves one launch
+    per round and color group, the groups in order into the same
+    deposits. It takes the rule sets this package defines (`rules.kind`
+    "fluvial" or "debris") and raises on anything else.
 Ported closures: the default, plus `nodes` in (1, 2, 4) with
 node_rule="face" and any `colors` (see `_check_closure`).
 """
@@ -623,12 +624,14 @@ def cohort_advance_reference(st0, aux, rules, iters, Llen, *, closure=None,
 # ---------------------------------------------------------------------------
 
 # Kernel launches per rule set and node count (key "fluvial", "debris",
-# "fluvial,nodes=4", ...; see `launch_key`): one per round and color group,
+# "fluvial,nodes=4", ...; see `launch_key`), and the rounds those launches
+# ran: one launch per color group and up to ROUNDS_PER_LAUNCH rounds,
 # counted where the wrapper launches the kernel and nowhere else.
 cohort_round_launches = {
     k if n == 1 else f"{k},nodes={n}": 0
     for k in ("fluvial", "debris") for n in (1, 2, 4)
 }
+cohort_rounds = dict.fromkeys(cohort_round_launches, 0)
 
 
 def launch_key(kind, nodes=1):
@@ -637,6 +640,72 @@ def launch_key(kind, nodes=1):
 
 
 _RULE_KINDS = {"fluvial": 0, "debris": 1}
+
+# Launch geometry, mirrored from csrc/cohort_round.cu (K1, RX1, RY1, XG;
+# BXN, BYN, CLN), which refuses any other: the one-node kernel's block
+# (rows along x, columns along y, its ring included), ring, which is also
+# the most rounds one launch runs, and channels per exchange step; the
+# N-node kernel's block and cluster (blocks stacked along x).
+ROUNDS_PER_LAUNCH = 2
+ONE_NODE_BLOCK = (24, 32)
+EXCHANGE_CHANNELS = 4
+NODES_BLOCK = (8, 32)
+NODES_CLUSTER = 4
+
+# Shared memory a block may use on the H100 (227 KB).
+MAX_SHARED_BYTES = 232_448
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelGeometry:
+    """One launch of the cohort kernel: block (x = columns along y, y =
+    rows along x) and grid in CUDA's order, the recomputed ring, blocks
+    per cluster along x, rounds and dynamic shared memory bytes a block."""
+
+    block: tuple
+    grid: tuple
+    ring: int
+    cluster: int
+    rounds: int
+    smem: int
+
+
+def kernel_geometry(C, nodes, W, H, rounds=1) -> KernelGeometry:
+    """The launch geometry of `rounds` rounds of a state with C carried
+    channels and `nodes` nodes on a W x H grid. One node: a block owns
+    its rows and columns less the ring on each side, shared memory holds
+    the double-buffered 4-face exchange of EXCHANGE_CHANNELS channels, the
+    aux fields and the owned deposits. N nodes (one round): a cluster owns its rows less one at
+    each end, a block its columns less one at each side, and shared
+    memory holds the 4 x (NSTATE + C) face sums, two node states (the
+    asynchronous copies' landing slots) and the owned deposits."""
+    if nodes == 1:
+        if not 1 <= rounds <= ROUNDS_PER_LAUNCH:
+            raise ValueError(f"a one-node launch runs 1..{ROUNDS_PER_LAUNCH}"
+                             f" rounds, got {rounds}")
+        (rows, cols), ring, cluster = ONE_NODE_BLOCK, ROUNDS_PER_LAUNCH, 1
+        owned = (rows - 2 * ring, cols - 2 * ring)
+        smem = 4 * (2 * 4 * EXCHANGE_CHANNELS + 4 + C) * rows * cols
+    else:
+        if rounds != 1:
+            raise ValueError(f"an N-node launch runs 1 round, got {rounds}")
+        (rows, cols), ring, cluster = NODES_BLOCK, 1, NODES_CLUSTER
+        owned = (cluster * rows - 2, cols - 2)
+        smem = 4 * ((NSTATE + C) * 6 + C) * rows * cols
+    grid = (-(-H // owned[1]), cluster * -(-W // owned[0]))
+    return KernelGeometry((cols, rows), grid, ring, cluster, rounds, smem)
+
+
+def launch_rounds(iters, k, every=TOL_CHECK_ROUNDS) -> list:
+    """Rounds of each launch of an `iters`-round solve: at most k each,
+    with a launch boundary at every multiple of `every` (where the
+    adaptive exit is read)."""
+    out, i = [], 0
+    while i < int(iters):
+        n = min(k, int(iters) - i, every - i % every)
+        out.append(n)
+        i += n
+    return out
 
 
 class _CohortParams(ctypes.Structure):
@@ -652,6 +721,14 @@ class _CohortParams(ctypes.Structure):
     ]
 
 
+class _CohortGeom(ctypes.Structure):
+    """A `KernelGeometry`; mirrors `CohortGeom` in csrc/cohort_round.cu."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "block_x", "block_y", "grid_x", "grid_y", "ring", "cluster",
+        "rounds", "smem")]
+
+
 def _kernel_params(rules, W, H, Llen):
     """The launch's parameter struct; the scalar products the JAX code
     forms in Python double precision (Llen^2, the rules' scalars) are
@@ -665,22 +742,26 @@ def _cohort_lib():
     from soillib_tpu_torch import _native
 
     lib = _native.load("cohort_round")
-    fn = lib.cohort_round_launch
+    fn = lib.cohort_rounds_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(_CohortParams),
+                       ctypes.POINTER(_CohortGeom),
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def cohort_round_cuda(st, aux, G, rules, Llen, out=None, nodes=1):
-    """One cohort round of one color group on the card: the Hopper kernel
-    reads `st` (S, W, H) with S = nodes x (NSTATE + C), `aux` (4, W, H)
-    and `G` (C, W, H), writes the next state into `out` (allocated when
-    None) and adds the carried arrivals into `G` in place. `nodes` > 1
-    is the face-routed N-node mixture. Returns `out`."""
+def cohort_rounds_cuda(st, aux, G, rules, Llen, rounds=1, out=None,
+                       nodes=1):
+    """`rounds` cohort rounds of one color group in ONE launch of the
+    Hopper kernel: reads `st` (S, W, H) with S = nodes x (NSTATE + C),
+    `aux` (4, W, H) and `G` (C, W, H), writes the state after the last
+    round into `out` (allocated when None) and adds every round's carried
+    arrivals into `G` in place, in round order. One node: 1 to
+    ROUNDS_PER_LAUNCH rounds; `nodes` > 1 (the face-routed N-node
+    mixture): one. Returns `out`."""
     kind = getattr(rules, "kind", None)
     if kind not in _RULE_KINDS:
         raise NotImplementedError(
@@ -692,9 +773,8 @@ def cohort_round_cuda(st, aux, G, rules, Llen, out=None, nodes=1):
     albedo = bool(rules.albedo_on)
     C = len(rules.classes)
     S = nodes * (NSTATE + C)
-    for name, t, ch in (("st", st, S), ("aux", aux, 4), ("G", G, C)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    tensors = (("st", st, S), ("aux", aux, 4), ("G", G, C))
+    for name, t, ch in tensors:
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
@@ -708,30 +788,46 @@ def cohort_round_cuda(st, aux, G, rules, Llen, out=None, nodes=1):
     W, H = st.shape[1], st.shape[2]
     if aux.shape[1:] != st.shape[1:] or G.shape[1:] != st.shape[1:]:
         raise ValueError("st, aux and G must share one (W, H) grid")
+    geo = kernel_geometry(C, nodes, W, H, int(rounds))
+    for name, t, _ in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if out is None:
         out = torch.empty_like(st)
     elif out.shape != st.shape or not out.is_contiguous() or out is st:
         raise ValueError("out must be a distinct contiguous tensor like st")
     params = _kernel_params(rules, W, H, Llen)
+    g = _CohortGeom(*geo.block, *geo.grid, geo.ring, geo.cluster,
+                    geo.rounds, geo.smem)
     fn = _cohort_lib()
     stream = torch.cuda.current_stream(st.device).cuda_stream
     with torch.cuda.device(st.device):
         err = fn(_RULE_KINDS[kind], int(albedo), int(nodes),
-                 ctypes.byref(params), st.data_ptr(), aux.data_ptr(),
-                 G.data_ptr(), out.data_ptr(), stream)
+                 ctypes.byref(params), ctypes.byref(g), st.data_ptr(),
+                 aux.data_ptr(), G.data_ptr(), out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"cohort_round kernel launch failed: CUDA error "
-                           f"{err}")
-    cohort_round_launches[launch_key(kind, nodes)] += 1
+        raise RuntimeError(f"cohort kernel launch failed: CUDA error {err}")
+    key = launch_key(kind, nodes)
+    cohort_round_launches[key] += 1
+    cohort_rounds[key] += geo.rounds
     return out
+
+
+def cohort_round_cuda(st, aux, G, rules, Llen, out=None, nodes=1):
+    """One cohort round of one color group on the card (one launch of
+    `cohort_rounds_cuda`). Returns `out`."""
+    return cohort_rounds_cuda(st, aux, G, rules, Llen, 1, out=out,
+                              nodes=nodes)
 
 
 def cohort_advance_cuda(st, aux, rules, iters, Llen, tol=0.0, closure=None):
     """`iters` cohort rounds on the card with ping-pong state buffers;
-    deposits accumulate in place. Each round launches the kernel once per
-    color group (`closure.colors`), in color order, into the same
-    deposits: the order of the plain batched round. `tol` > 0 reads the
-    adaptive exit criterion every TOL_CHECK_ROUNDS rounds (one host read
+    deposits accumulate in place. A one-node, one-color solve runs
+    ROUNDS_PER_LAUNCH rounds per launch (`launch_rounds`); otherwise each
+    round launches the kernel once per color group (`closure.colors`), in
+    color order, into the same deposits: the order of the plain batched
+    round. `tol` > 0 reads the adaptive exit criterion every
+    TOL_CHECK_ROUNDS rounds, always at a launch boundary (one host read
     each). Returns (advanced state, deposits)."""
     cl = _check_closure(closure)
     st = as_stack(st).contiguous()
@@ -742,22 +838,25 @@ def cohort_advance_cuda(st, aux, rules, iters, Llen, tol=0.0, closure=None):
     G = torch.zeros((C,) + tuple(st.shape[1:]), dtype=torch.float32,
                     device=st.device)
     contractive = bool(getattr(rules, "contractive", False))
+    k = ROUNDS_PER_LAUNCH if ncol == 1 and nnodes == 1 else 1
     # Ping-pong between two fresh buffers; the caller's state is only read.
     bufs = [torch.empty_like(st), None]
-    for i in range(int(iters)):
+    i = 0
+    for n, rounds in enumerate(launch_rounds(iters, k)):
         if (tol and tol > 0.0 and i % TOL_CHECK_ROUNDS == 0
                 and bool(tail_converged(carried_live(st, cl),
                                         deposit_gauge(G), float(iters) - i,
                                         tol, contractive))):
             break
-        if bufs[i % 2] is None:
-            bufs[i % 2] = torch.empty_like(st)
-        out = bufs[i % 2]
+        if bufs[n % 2] is None:
+            bufs[n % 2] = torch.empty_like(st)
+        out = bufs[n % 2]
         for j in range(ncol):
             g = slice(j * P, (j + 1) * P)
-            cohort_round_cuda(st[g], aux, G, rules, Llen, out=out[g],
-                              nodes=nnodes)
+            cohort_rounds_cuda(st[g], aux, G, rules, Llen, rounds,
+                               out=out[g], nodes=nnodes)
         st = out
+        i += rounds
     return st, G
 
 

@@ -12,8 +12,9 @@ Cohort kernel: `cohort_arrays` is the JAX kernel tests' seeded recipe
 (tests/test_sweep.py `_cohort_problem`) and `plain_exit_round` the
 adaptive-exit probe; both are shared with tests/test_torch_cohort.py.
 Tolerances are the JAX package's kernel-vs-reference bars: one round rtol
-2e-6 / atol 1e-5, several rounds rtol 2e-5 / atol 1e-5 on the deposits.
-Sweep and tile kernels: bitwise against their plain versions; whole tiled
+2e-6 / atol 1e-5, several rounds rtol 2e-5 / atol 1e-5 on the deposits;
+bitwise where the kernel keeps the plain summation order (one-node solves
+at any rounds per launch, colored solves, one N-node round). Sweep and tile kernels: bitwise against their plain versions; whole tiled
 accumulations at rtol 1e-5 (phase 3's index_add uses atomics).
 """
 
@@ -95,13 +96,14 @@ def _on_card(st, aux):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,albedo", CASES)
 def test_kernel_matches_plain_on_card(kind, albedo):
-    """One round (state and deposits) and 16 rounds (deposits), and one
-    launch counted per round."""
+    """One round (state and deposits) and 16 rounds (deposits); every
+    round counted, and one launch per ROUNDS_PER_LAUNCH rounds."""
     st, aux = _on_card(*cohort_arrays(kind, albedo, seed=5))
     tr = port_rules(kind, albedo, 72, 60)
     C = st.shape[0] - cohort.NSTATE
     G = torch.zeros((C,) + tuple(st.shape[1:]), device="cuda")
     n0 = cohort.cohort_round_launches[kind]
+    r0 = cohort.cohort_rounds[kind]
     st_k = cohort.cohort_round_cuda(st, aux, G, tr, LLEN)
     st_p, G_p = cohort.cohort_round(st, torch.zeros_like(G), aux, tr, LLEN)
     _close(st_k, st_p, 2e-6, 1e-5, "state")
@@ -109,7 +111,9 @@ def test_kernel_matches_plain_on_card(kind, albedo):
     _, g_k = cohort.cohort_advance_cuda(st, aux, tr, 16, LLEN)
     _, g_p = cohort.cohort_advance_reference(st, aux, tr, 16, LLEN)
     _close(g_k, g_p, 2e-5, 1e-5, "16-round deposits")
-    assert cohort.cohort_round_launches[kind] == n0 + 17
+    assert cohort.cohort_rounds[kind] == r0 + 17
+    assert cohort.cohort_round_launches[kind] == n0 + 1 + len(
+        cohort.launch_rounds(16, cohort.ROUNDS_PER_LAUNCH))
 
 
 @pytest.mark.cuda
@@ -140,9 +144,9 @@ def test_kernel_adaptive_exit_on_card(mode):
     exit_plain = plain_exit_round(st, aux, tr, iters)
     assert 0 < exit_plain < iters // 2, f"exit at {exit_plain}/{iters}"
     every = cohort.TOL_CHECK_ROUNDS
-    n0 = cohort.cohort_round_launches[tr.kind]
+    n0 = cohort.cohort_rounds[tr.kind]
     _, g_k = cohort.cohort_advance_cuda(st, aux, tr, iters, LLEN, tol=TOL)
-    rounds = cohort.cohort_round_launches[tr.kind] - n0
+    rounds = cohort.cohort_rounds[tr.kind] - n0
     assert rounds == min(iters, -(-exit_plain // every) * every), (
         rounds, exit_plain)
 
@@ -154,6 +158,92 @@ def test_kernel_adaptive_exit_on_card(mode):
         f"adaptive deposits vs plain: max abs err {float(err.max()):.3e}")
     _, g_fix = cohort.cohort_advance_cuda(st, aux, tr, iters, LLEN)
     _close(g_k, g_fix, 2e-6, 1e-6, "adaptive vs fixed depth")
+
+
+def _equal(got, want, msg):
+    assert torch.equal(got, want), (
+        f"{msg}: not bitwise equal, max abs err "
+        f"{float((got - want).abs().max()):.3e}")
+
+
+def _by_launches(st, aux, tr, rounds, k):
+    """`rounds` rounds through `cohort_rounds_cuda`, split as the wrapper
+    splits them with k rounds a launch; returns (state, deposits)."""
+    G = torch.zeros((st.shape[0] - cohort.NSTATE,) + tuple(st.shape[1:]),
+                    device=st.device)
+    for n in cohort.launch_rounds(rounds, k):
+        st = cohort.cohort_rounds_cuda(st, aux, G, tr, LLEN, n)
+    return st, G
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,albedo", CASES)
+@pytest.mark.parametrize("W,H", [(200, 72), (4097, 33)])
+@pytest.mark.parametrize("k", [1, 2])
+def test_rounds_kernel_bitwise_on_card(kind, albedo, W, H, k):
+    """The one-node kernel at k rounds a launch (every k the wrapper
+    chooses: 1 for colored solves, ROUNDS_PER_LAUNCH otherwise) for 1,
+    k - 1, k and 3k + 2 rounds, on grids that are not a multiple of the
+    tile: state and deposits bitwise equal to the plain rounds; every
+    round and launch counted."""
+    assert k in (1, cohort.ROUNDS_PER_LAUNCH)
+    st, aux = _on_card(*cohort_arrays(kind, albedo, W, H, seed=W + H))
+    tr = port_rules(kind, albedo, W, H)
+    for rounds in sorted({1, max(k - 1, 1), k, 3 * k + 2}):
+        n0 = cohort.cohort_round_launches[kind]
+        r0 = cohort.cohort_rounds[kind]
+        st_k, g_k = _by_launches(st, aux, tr, rounds, k)
+        assert cohort.cohort_rounds[kind] == r0 + rounds
+        assert cohort.cohort_round_launches[kind] == n0 + -(-rounds // k)
+        st_p, g_p = cohort.cohort_advance_reference(st, aux, tr, rounds,
+                                                    LLEN)
+        _equal(st_k, st_p, f"{rounds} rounds, state")
+        _equal(g_k, g_p, f"{rounds} rounds, deposits")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,albedo", [("fluvial", True),
+                                         ("debris", False)])
+def test_colored_one_node_solve_bitwise_on_card(kind, albedo):
+    """A one-node solve with three colors runs one round per launch and
+    color group, in color order, into the same deposits: the plain
+    batched round's order, so state and deposits are bitwise equal."""
+    W, H, iters, M = 90, 70, 11, 3
+    sts = [cohort_arrays(kind, albedo, W, H, seed=20 + j) for j in range(M)]
+    st, aux = _on_card(np.concatenate([s for s, _ in sts]), sts[0][1])
+    tr = port_rules(kind, albedo, W, H)
+    cl = soil.CohortClosure(colors=M)
+    n0 = cohort.cohort_round_launches[kind]
+    r0 = cohort.cohort_rounds[kind]
+    st_k, g_k = cohort.cohort_advance_cuda(st, aux, tr, iters, LLEN,
+                                           closure=cl)
+    assert cohort.cohort_round_launches[kind] == n0 + M * iters
+    assert cohort.cohort_rounds[kind] == r0 + M * iters
+    st_p, g_p = cohort.cohort_advance_reference(st, aux, tr, iters, LLEN,
+                                                closure=cl)
+    _equal(st_k, st_p, "colored state")
+    _equal(g_k, g_p, "colored deposits")
+
+
+@pytest.mark.cuda
+def test_adaptive_exit_with_a_short_last_launch_on_card():
+    """35 rounds with the `tol` exit on a problem that does not exit
+    early: checks at rounds 0, 16 and 32 fall on launch boundaries, the
+    last launch runs one round, and the deposits are bitwise those of the
+    plain fixed-depth solve."""
+    iters = 35
+    st, aux = _on_card(*cohort_arrays("fluvial", True, 72, 60, seed=6))
+    tr = port_rules("fluvial", True, 72, 60)
+    assert plain_exit_round(st, aux, tr, iters) == iters
+    split = cohort.launch_rounds(iters, cohort.ROUNDS_PER_LAUNCH)
+    assert split[-1] == 1 and sum(split[:8]) == 16
+    n0 = cohort.cohort_round_launches["fluvial"]
+    r0 = cohort.cohort_rounds["fluvial"]
+    _, g_k = cohort.cohort_advance_cuda(st, aux, tr, iters, LLEN, tol=TOL)
+    assert cohort.cohort_rounds["fluvial"] == r0 + iters
+    assert cohort.cohort_round_launches["fluvial"] == n0 + len(split)
+    _, g_p = cohort.cohort_advance_reference(st, aux, tr, iters, LLEN)
+    _equal(g_k, g_p, "deposits")
 
 
 # ---------------------------------------------------------------------------
@@ -338,12 +428,12 @@ def node_state(kind, albedo, nodes, W, H, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,albedo", CASES)
 @pytest.mark.parametrize("nodes", [2, 4])
-@pytest.mark.parametrize("W,H", [(64, 64), (200, 72)])
+@pytest.mark.parametrize("W,H", [(64, 64), (200, 72), (130, 33)])
 def test_nodes_kernel_matches_plain_on_card(kind, albedo, nodes, W, H):
     """The face-routed N-node round: one round (state and deposits) and
     16 rounds (deposits) against the plain nodes round, on a square grid
-    and on one that is not a multiple of the tile; one launch per
-    round."""
+    and on ones that are not a multiple of the tile or the cluster; one
+    launch per round, and one round bitwise equal to the plain one."""
     st, aux = _on_card(*node_state(kind, albedo, nodes, W, H, seed=7))
     tr = port_rules(kind, albedo, W, H)
     cl = soil.CohortClosure(nodes=nodes)
@@ -361,6 +451,8 @@ def test_nodes_kernel_matches_plain_on_card(kind, albedo, nodes, W, H):
                                              closure=cl)
     _close(g_k, g_p, 2e-5, 1e-5, "16-round deposits")
     assert cohort.cohort_round_launches[key] == n0 + 17
+    assert torch.equal(st_k, st_p) and torch.equal(G, G_p), (
+        "one round is not bitwise equal to the plain nodes round")
 
 
 @pytest.mark.cuda
