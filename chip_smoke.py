@@ -9,11 +9,12 @@ drives these paths through the public entry points, at full width (4096^2)
 unless stated: the coupled erosion step (32 cohort rounds), the DEM
 workload (fill_depressions -> steepest -> accumulate and accumulate_decay
 through the tile kernels -> gradient -> solve_uniform through the sweep
-kernel, 8192 rounds), the erosion step with transportMethod="field-static"
-(the sweep kernel at C = 7), the fractal noise, the headline bench
-(`python -m soillib_tpu_torch.bench` at 32 rounds and `auto`, which runs
-the FP32 probe kernel), the flagship example at 1024^2 and the quality
-closure CohortClosure(nodes=4, colors=8) (the cohort kernel with
+kernel, 8192 rounds at 8 a launch), the erosion step with
+transportMethod="field-static" (the sweep kernel at C = 7), the fractal
+noise, the headline bench (`python -m soillib_tpu_torch.bench` at 32
+rounds and `auto`, which runs the FP32 probe kernel), the flagship
+example at 1024^2 and the quality closure CohortClosure(nodes=4,
+colors=8) (the cohort kernel with
 NODES=4, once per color group and round). Each path's kernel launches
 are counted from zero just before it runs and read just after; one more
 step of each erosion path is profiled by kernel. Every phase raises on
@@ -584,7 +585,7 @@ def phase_dem(n=4096, seed=17):
     scale = (90.0, 90.0)
     rain = torch.ones((n, n), device="cuda")
     ops = {}
-    zero_counts(gt.tile_launches, sweep.sweep_launches)
+    zero_counts(gt.tile_launches, sweep.sweep_launches, sweep.sweep_rounds)
     with Spy(gt, "local_fp_cuda") as loc, Spy(gt, "trace_cuda") as tr, \
             Spy(sweep, "transport_advance_cuda") as sw:
         filled, ops["fill_depressions"] = timed(
@@ -602,7 +603,8 @@ def phase_dem(n=4096, seed=17):
             lambda: soil.solve_uniform(velocity, rain, evap, scale))
     launches = {"local": gt.tile_launches["local"],
                 "trace": gt.tile_launches["trace"],
-                "sweep": sweep.sweep_launches["round"]}
+                "sweep": sweep.sweep_launches["round"],
+                "sweep_rounds": sweep.sweep_rounds["round"]}
     for name, a in (("filled", filled), ("area", area),
                     ("decayed", decayed), ("gradient", grad),
                     ("discharge", discharge)):
@@ -616,7 +618,9 @@ def phase_dem(n=4096, seed=17):
     if abs(total - n * n) > 1e-4 * n * n:
         raise AssertionError(f"DEM path: unit rain reaching the roots "
                              f"{total} != {n * n} cells")
-    want = {"local": 4, "trace": 2, "sweep": 2 * n}
+    want = {"local": 4, "trace": 2,
+            "sweep": len(sweep.sweep_launch_rounds(2 * n)),
+            "sweep_rounds": 2 * n}
     if launches != want:
         raise AssertionError(f"DEM path launches {launches}, expected {want}")
     log(f"  op ms {json.dumps({k: round(v, 1) for k, v in ops.items()})}; "
@@ -752,34 +756,73 @@ def accumulate_checks(dem, edge=1):
     return errs
 
 
-def sweep_entry(name, calls, launches, rounds=16):
-    """The sweep kernel against the plain rounds on a path's own inputs
-    (1 and `rounds` rounds; rtol 2e-6 / atol 1e-5, bitwise expected), then
-    timed: per launch over 16-round runs, and one plain round."""
+def sweep_usage():
+    """(registers, spill stores, spill loads) that ptxas reported for the
+    sweep kernel, from the build log; None if the log does not name it."""
+    import re
+
+    from soillib_tpu_torch import _native
+
+    lines = _native.build_log("transport_sweep").splitlines()
+    for i, line in enumerate(lines):
+        if "transport_rounds_kernel" in line and "Compiling entry" in line:
+            regs = spill = None
+            for used in lines[i + 1:i + 4]:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", used)
+                spill = spill or (m and (int(m[1]), int(m[2])))
+                m = re.search(r"Used (\d+) registers", used)
+                regs = regs or (m and int(m[1]))
+            if regs:
+                return regs, *(spill or (None, None))
+    return None
+
+
+def sweep_design_bytes(geo, C):
+    """Device-memory bytes per owned cell and round of the sweep kernel's
+    own design at an interior block: the window's vx, vy and C channels
+    of E, att and G read once per launch, the owned G written once."""
+    from soillib_tpu_torch.ops import sweep
+
+    tx, ty = sweep.SWEEP_TILE
+    window = (tx + 2 * geo.ring) * sweep.SWEEP_WINDOW_COLS
+    return 4 * (window * (2 + 3 * C) + tx * ty * C) / (tx * ty * geo.rounds)
+
+
+def sweep_entry(name, calls, launches, rounds):
+    """The sweep kernel against the plain rounds on a path's own inputs,
+    bitwise (1 and 16 rounds, through the wrapper's split), then timed per
+    round at SWEEP_K rounds a launch, and one plain round."""
     import torch
 
     from soillib_tpu_torch.ops import sweep
 
-    saved = dict(sweep.sweep_launches)
+    saved = dict(sweep.sweep_launches), dict(sweep.sweep_rounds)
     E, att, vx, vy = calls[0][0][1:5]
     C, W, H = E.shape
     G0 = torch.zeros_like(E)
-    errs, bitwise = [], True
-    for r in (1, rounds):
+    errs = []
+    for r in (1, 16):
         got = sweep.transport_advance_cuda(G0, E, att, vx, vy, r)
         want = sweep.transport_advance_reference(G0, E, att, vx, vy, r)
-        errs.append(check_close(f"{name}, {r} rounds", got, want, 2e-6, 1e-5))
-        bitwise = bitwise and torch.equal(got, want)
+        errs.append(bitwise_err(f"{name}, {r} rounds", got, want))
         del got, want
-    ms = cuda_ms(lambda: sweep.transport_advance_cuda(G0, E, att, vx, vy,
-                                                      16), 5) / 16
+    K = sweep.SWEEP_K
     G = torch.rand_like(E)
+    out = torch.empty_like(E)
+    ms = cuda_ms(lambda: sweep.transport_rounds_cuda(G, E, att, vx, vy, K,
+                                                     out), 20) / K
+    ms_1 = cuda_ms(lambda: sweep.transport_rounds_cuda(G, E, att, vx, vy, 1,
+                                                       out), 20)
     plain_ms = cuda_ms(lambda: sweep.upwind_push_cf(att * (E + G), vx, vy), 5)
-    sweep.sweep_launches.update(saved)
-    log(f"  {name} {C}x{W}x{H}: 1 and {rounds} rounds "
-        f"{'bitwise equal' if bitwise else 'within rtol 2e-6'} "
-        f"(max abs err {max(errs):.3e}); {ms:.4f} ms/launch, plain round "
-        f"{plain_ms:.3f} ms")
+    # Launches made to compare and time the kernel do not count.
+    sweep.sweep_launches.update(saved[0])
+    sweep.sweep_rounds.update(saved[1])
+    geo = sweep.sweep_geometry(C, W, H, K)
+    usage = sweep_usage()
+    log(f"  {name} {C}x{W}x{H}: 1 and 16 rounds bitwise equal to the plain "
+        f"rounds; {ms:.4f} ms/round at {K} rounds a launch ({ms_1:.4f} at "
+        f"1), plain round {plain_ms:.3f} ms; ptxas {usage}")
     return {
         "name": name,
         "route": "cuda",
@@ -793,19 +836,31 @@ def sweep_entry(name, calls, launches, rounds=16):
         "bound_by": None,
         "library_ms": None,
         "shape": [C, W, H],
-        "bitwise": bitwise,
-        # One round per launch: E, att and G in, G out, vx and vy.
-        "bytes_per_cell_round": (4 * C + 2) * 4,
+        "bitwise": True,
+        "rounds": rounds,
+        "rounds_per_launch": K,
+        "ms_per_round_at_1_round_a_launch": ms_1,
+        "tile": {"block": list(geo.block), "ring": geo.ring,
+                 "owned": list(sweep.SWEEP_TILE)},
+        "registers": usage and usage[0],
+        "spill_bytes": usage and [usage[1], usage[2]],
+        "shared_bytes_per_block": geo.smem,
+        "bytes_per_cell_round": sweep_design_bytes(geo, C),
     }
 
 
 def sweep_bound(entry, costs):
-    """`set_round_bound` of a sweep entry. Per cell and round: four donor
-    weights (2 abs, add, select, divide, select each; the division
-    weighted by its cost) and, per channel and donor, e + g, att *,
-    * weight, then 3 adds; E, att and G in, G out, vx and vy per pass."""
+    """`set_round_bound` of a sweep entry: the reference round's
+    operations per cell, 9 per channel (e + g, att *, four products by
+    the donors' weights, three adds) and the weights once per 16-round
+    pass ((13 + 2 div) / 16: 2 abs, add, compare and select, two divisions
+    weighted by the probe's cost, four compare-selects); E, att and G in,
+    G out, vx and vy once per pass: (4C + 2) * 4 bytes."""
+    from soillib_tpu_torch import bench
+
     C = entry["shape"][0]
-    set_round_bound(entry, 20 + 4 * costs["div"] + 15 * C, (4 * C + 2) * 4)
+    set_round_bound(entry, 9 * C + (13 + 2 * costs["div"])
+                    / bench.K_ROUNDS_PER_PASS, (4 * C + 2) * 4)
 
 
 def solve_uniform_check(n=1024, seed=19):
@@ -856,8 +911,8 @@ def phase_field_static(n=4096, steps=3, iters=32):
     p.transportMethod = "field-static"
     state = soil.ErosionState.zeros((n, n), height=terrain(n, 23))
     sim = soil.ErosionSim((n, n), (0.1, 0.1, 4.0), p, state=state)
-    zero_counts(sweep.sweep_launches, cohort.cohort_round_launches,
-                cohort.cohort_rounds)
+    zero_counts(sweep.sweep_launches, sweep.sweep_rounds,
+                cohort.cohort_round_launches, cohort.cohort_rounds)
     times = []
     with Spy(sweep, "transport_advance_cuda") as sw:
         for _ in range(steps):
@@ -865,18 +920,21 @@ def phase_field_static(n=4096, steps=3, iters=32):
             times.append(ms)
     launches = nonzero({"sweep": sweep.sweep_launches["round"],
                         **cohort.cohort_round_launches})
-    rounds = nonzero(cohort.cohort_rounds)
+    rounds = nonzero({"sweep": sweep.sweep_rounds["round"],
+                      **cohort.cohort_rounds})
     finite_state(sim.state, f"{n}^2 field-static erode")
-    want = {"sweep": steps * iters, "debris": steps * len(
-        cohort.launch_rounds(iters, cohort.ROUNDS_PER_LAUNCH))}
-    if launches != want or rounds != {"debris": steps * iters}:
+    want = {"sweep": steps * len(sweep.sweep_launch_rounds(iters)),
+            "debris": steps * len(
+                cohort.launch_rounds(iters, cohort.ROUNDS_PER_LAUNCH))}
+    if launches != want or rounds != {"sweep": steps * iters,
+                                      "debris": steps * iters}:
         raise AssertionError(f"field-static launches {launches} (cohort "
                              f"rounds {rounds}), expected {want}")
     if sw.calls[0][0][1].shape[0] != 7:
         raise AssertionError("field-static sweep is not C = 7")
     log(f"  step ms {[round(t, 1) for t in times]}; steps 2-3 mean "
-        f"{np.mean(times[1:]):.1f} ms; launches {launches}")
-    return sim, times, launches, sw.calls
+        f"{np.mean(times[1:]):.1f} ms; launches {launches}; rounds {rounds}")
+    return sim, times, launches, rounds, sw.calls
 
 
 # ---------------------------------------------------------------------------
@@ -1334,17 +1392,18 @@ def main():
     entries += tile_entries(dem)
     accumulate_checks(dem)
     entries.append(sweep_entry("transport_sweep[C=1]", dem["sweep"],
-                               dem["launches"]["sweep"]))
+                               dem["launches"]["sweep"],
+                               dem["launches"]["sweep_rounds"]))
     solve_uniform_check()
     del dem
 
     log("phase 8: field-static, ErosionSim 4096^2, 32 rounds, 3 steps")
-    fs_sim, _, fs_launches, fs_calls = phase_field_static()
+    fs_sim, _, fs_launches, fs_rounds, fs_calls = phase_field_static()
     entries.append(sweep_entry("transport_sweep[C=7]", fs_calls,
-                               fs_launches["sweep"]))
+                               fs_launches["sweep"], fs_rounds["sweep"]))
     del fs_calls
     log("where the time goes: one profiled 4096^2 field-static step")
-    phase_breakdown(fs_sim, (("sweep_kernel_ms", "transport_round_kernel"),
+    phase_breakdown(fs_sim, (("sweep_kernel_ms", "transport_rounds_kernel"),
                              ("cohort_kernel_ms", "cohort_rounds_kernel")))
     del fs_sim
 

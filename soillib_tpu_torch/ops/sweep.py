@@ -8,15 +8,16 @@ unit direction, and what leaves the domain is lost (path.cu:104).
 
 Two execution paths, chosen by the tensors' device:
   * CPU tensors: `transport_advance_reference`, one plain round at a time.
-  * CUDA tensors: one launch of the hand-written Hopper kernel
-    (csrc/transport_sweep.cu) per round, held bitwise against the plain
-    round on the card.
+  * CUDA tensors: the hand-written Hopper kernel (csrc/transport_sweep.cu),
+    up to SWEEP_K rounds per launch (trapezoid temporal blocking in shared
+    memory, `sweep_launch_rounds`, `sweep_geometry`), held bitwise against
+    the plain rounds on the card.
 
 The JAX package caps the channel count of its TPU kernel
 (`MAX_SWEEP_CHANNELS = 12`, a VMEM budget) and sends wider solves to the
-plain rounds. The CUDA kernel keeps no per-channel state on chip (one
-thread per cell loops over the channels), so this port has no cap: every
-C goes through the kernel.
+plain rounds. The CUDA kernel loops over the channels inside a block and
+keeps one channel's window on chip at a time, so this port has no cap:
+every C goes through the kernel.
 
 Gradients: the kernel has no reverse mode, so `run_transport` on the card
 goes through `DiffableSweep`, whose backward replays the plain rounds
@@ -27,6 +28,7 @@ JAX package's custom_vjp does.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -36,9 +38,28 @@ from torch.utils.checkpoint import checkpoint
 # rounds per device-memory pass).
 HALO_K = 16
 
-# Kernel launches: one per round, counted where the wrapper launches the
-# kernel and nowhere else.
+# Kernel launches and the rounds they ran, counted where the wrapper
+# launches the kernel and nowhere else.
 sweep_launches = {"round": 0}
+sweep_rounds = {"round": 0}
+
+# Launch geometry, mirrored from csrc/transport_sweep.cu (SWEEP_K, TX, WY,
+# CY, NTX, STAGED, BPS), which refuses any other: the most rounds one
+# launch runs, which is also the recomputed ring; the owned tile (rows
+# along x, columns along y); the window's columns; the columns of one
+# thread (a warp spans the window's columns) and the threads along x;
+# the fields staged in shared memory for the next tile and channel (G, E,
+# att; vx, vy for channel 0); persistent blocks an SM.
+SWEEP_K = 8
+SWEEP_TILE = (32, 112)
+SWEEP_WINDOW_COLS = 128
+SWEEP_GROUP_COLS = 4
+SWEEP_THREAD_ROWS = 16
+SWEEP_STAGED = 5
+SWEEP_BLOCKS_PER_SM = 1
+
+# Shared memory a block may use on the H100 (227 KB).
+MAX_SHARED_BYTES = 232_448
 
 
 def _round_weights(vx, vy):
@@ -116,31 +137,74 @@ def _advance_checkpointed(G0, E, att, vx, vy, iters: int):
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class SweepGeometry:
+    """One launch of the sweep kernel: block and grid in CUDA's order (x
+    along y, the contiguous axis), the tiles (along y, along x) that the
+    grid's persistent blocks walk, the ring, rounds and dynamic shared
+    memory bytes a block (the double-buffered payloads, the staged
+    window of the next tile and channel, and its mbarrier)."""
+
+    block: tuple
+    grid: tuple
+    tiles: tuple
+    ring: int
+    rounds: int
+    smem: int
+
+
+def sweep_launch_rounds(iters) -> list:
+    """Rounds of each launch of an `iters`-round solve: SWEEP_K each, then
+    one remainder launch of fewer."""
+    n, rem = divmod(int(iters), SWEEP_K)
+    return [SWEEP_K] * n + ([rem] if rem else [])
+
+
+def sweep_geometry(C, W, H, rounds, sms=None) -> SweepGeometry:
+    """The launch geometry of `rounds` rounds of C channels on a W x H
+    grid: the tiles of SWEEP_TILE owned cells cover the domain, each
+    loaded as a window with a SWEEP_K-cell ring; SWEEP_BLOCKS_PER_SM
+    persistent blocks an SM (`sms` SMs; one block a tile when None or
+    when there are fewer tiles) walk them. Shared memory does not grow
+    with C (the channels loop inside the block)."""
+    if not 1 <= int(rounds) <= SWEEP_K:
+        raise ValueError(f"a sweep launch runs 1..{SWEEP_K} rounds, got "
+                         f"{rounds}")
+    if C < 1 or W < 1 or H < 1:
+        raise ValueError(f"no sweep of shape ({C}, {W}, {H})")
+    tx, ty = SWEEP_TILE
+    tiles = (-(-H // ty), -(-W // tx))
+    n = tiles[0] * tiles[1]
+    window = (tx + 2 * SWEEP_K) * SWEEP_WINDOW_COLS
+    return SweepGeometry((SWEEP_WINDOW_COLS // SWEEP_GROUP_COLS,
+                          SWEEP_THREAD_ROWS),
+                         (min(n, SWEEP_BLOCKS_PER_SM * sms) if sms else n,
+                          1), tiles, SWEEP_K,
+                         int(rounds), (2 + SWEEP_STAGED) * window * 4 + 8)
+
+
 def _sweep_fn():
     """The built kernel's entry point (compiled from csrc/ at first use)."""
     from soillib_tpu_torch import _native
 
-    fn = _native.load("transport_sweep").transport_round_launch
+    fn = _native.load("transport_sweep").transport_rounds_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _check_sweep_inputs(G, E, att, vx, vy):
-    """(C, W, H) of a kernel solve; raises on what the kernel cannot take."""
+    """(C, W, H) of a kernel solve; raises on what the kernel cannot take
+    (type, layout and shape first, then the device)."""
     for name, t, dim in (("G", G, 3), ("E", E, 3), ("att", att, 3),
                          ("vx", vx, 2), ("vy", vy, 2)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32, got {t.dtype}")
         if t.dim() != dim or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dim}-d tensor, "
                              f"got shape {tuple(t.shape)}")
-        if t.device != E.device:
-            raise ValueError("sweep inputs must share one device")
     C, W, H = E.shape
     if G.shape != E.shape or att.shape != E.shape:
         raise ValueError(f"G, E and att must share one (C, W, H) shape, got "
@@ -148,28 +212,51 @@ def _check_sweep_inputs(G, E, att, vx, vy):
                          f"{tuple(att.shape)}")
     if vx.shape != (W, H) or vy.shape != (W, H):
         raise ValueError(f"vx and vy must be ({W}, {H})")
+    for name, t in (("G", G), ("E", E), ("att", att), ("vx", vx),
+                    ("vy", vy)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.device != E.device:
+            raise ValueError("sweep inputs must share one device")
     return C, W, H
 
 
-def transport_advance_cuda(G0, E, att, vx, vy, iters: int):
-    """`iters` rounds on the card, one kernel launch per round with
-    ping-pong buffers; the caller's G0 is only read."""
-    C, W, H = _check_sweep_inputs(G0, E, att, vx, vy)
+def transport_rounds_cuda(G, E, att, vx, vy, rounds, out):
+    """`rounds` (1..SWEEP_K) rounds from G into `out` in ONE launch of the
+    Hopper kernel; G is only read. Returns `out`."""
+    C, W, H = _check_sweep_inputs(G, E, att, vx, vy)
+    geo = sweep_geometry(C, W, H, rounds, torch.cuda.get_device_properties(
+        E.device).multi_processor_count)
+    if (out.shape != E.shape or out.dtype != torch.float32
+            or not out.is_contiguous() or out.device != E.device
+            or out.data_ptr() == G.data_ptr()):
+        raise ValueError("out must be a distinct contiguous float32 tensor "
+                         "like E")
     fn = _sweep_fn()
     stream = torch.cuda.current_stream(E.device).cuda_stream
-    G = G0
-    bufs = [torch.empty_like(E), torch.empty_like(E) if iters > 1 else None]
     with torch.cuda.device(E.device):
-        for r in range(int(iters)):
-            out = bufs[r % 2]
-            err = fn(G.data_ptr(), E.data_ptr(), att.data_ptr(),
-                     vx.data_ptr(), vy.data_ptr(), out.data_ptr(), C, W, H,
-                     stream)
-            if err != 0:
-                raise RuntimeError(f"transport_round kernel launch failed: "
-                                   f"CUDA error {err}")
-            sweep_launches["round"] += 1
-            G = out
+        err = fn(G.data_ptr(), E.data_ptr(), att.data_ptr(), vx.data_ptr(),
+                 vy.data_ptr(), out.data_ptr(), C, W, H, geo.rounds,
+                 *geo.block, *geo.grid, geo.ring, geo.smem, stream)
+    if err != 0:
+        raise RuntimeError(f"transport_rounds kernel launch failed: CUDA "
+                           f"error {err}")
+    sweep_launches["round"] += 1
+    sweep_rounds["round"] += geo.rounds
+    return out
+
+
+def transport_advance_cuda(G0, E, att, vx, vy, iters: int):
+    """`iters` rounds on the card, up to SWEEP_K per launch
+    (`sweep_launch_rounds`) with ping-pong buffers; the caller's G0 is
+    only read."""
+    _check_sweep_inputs(G0, E, att, vx, vy)
+    split = sweep_launch_rounds(iters)
+    G = G0
+    bufs = [torch.empty_like(E),
+            torch.empty_like(E) if len(split) > 1 else None]
+    for j, n in enumerate(split):
+        G = transport_rounds_cuda(G, E, att, vx, vy, n, bufs[j % 2])
     return G.clone() if G is G0 else G
 
 
@@ -182,8 +269,8 @@ def transport_advance(G0, E, att, vx, vy, iters: int):
       att:  (C, W, H) per-cell, per-channel attenuation.
       vx, vy: (W, H) unit flow direction components.
     Returns:
-      (C, W, H) accumulated inflow G. CUDA tensors launch the kernel once
-      per round; CPU tensors run the plain rounds.
+      (C, W, H) accumulated inflow G. CUDA tensors launch the kernel
+      (up to SWEEP_K rounds a launch); CPU tensors run the plain rounds.
     """
     if E.device.type == "cuda":
         return transport_advance_cuda(G0, E, att, vx, vy, iters)

@@ -14,8 +14,10 @@ adaptive-exit probe; both are shared with tests/test_torch_cohort.py.
 Tolerances are the JAX package's kernel-vs-reference bars: one round rtol
 2e-6 / atol 1e-5, several rounds rtol 2e-5 / atol 1e-5 on the deposits;
 bitwise where the kernel keeps the plain summation order (one-node solves
-at any rounds per launch, colored solves, one N-node round). Sweep and tile kernels: bitwise against their plain versions; whole tiled
-accumulations at rtol 1e-5 (phase 3's index_add uses atomics).
+at any rounds per launch, colored solves, one N-node round). Sweep
+(SWEEP_K rounds a launch) and tile kernels: bitwise against their plain
+versions; whole tiled accumulations at rtol 1e-5 (phase 3's index_add
+uses atomics).
 """
 
 import math
@@ -277,16 +279,74 @@ def sweep_arrays(C, W, H, seed=0):
 @pytest.mark.parametrize("iters", [1, 16])
 def test_sweep_kernel_matches_plain_on_card(C, iters):
     """1 and 16 rounds, C up to 13 (past the JAX kernel's cap), a grid of
-    several ragged blocks; one launch counted per round."""
+    several ragged blocks; one launch counted per SWEEP_K rounds and one
+    for the remainder, and every round counted."""
     _needs_card()
     E, att, vx, vy = sweep_arrays(C, 75, 61, seed=C)
     G0 = torch.rand((C, 75, 61), device="cuda")
     n0 = sweep.sweep_launches["round"]
+    r0 = sweep.sweep_rounds["round"]
     got = sweep.transport_advance(G0, E, att, vx, vy, iters)
-    assert sweep.sweep_launches["round"] == n0 + iters
+    assert (sweep.sweep_launches["round"] - n0
+            == len(sweep.sweep_launch_rounds(iters))
+            == -(-iters // sweep.SWEEP_K))
+    assert sweep.sweep_rounds["round"] - r0 == iters
     want = sweep.transport_advance_reference(G0, E, att, vx, vy, iters)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+SWEEP_ROUNDS = [1, sweep.SWEEP_K - 1, sweep.SWEEP_K, sweep.SWEEP_K + 1,
+                2 * sweep.SWEEP_K + 3, 37]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 7, 13])
+@pytest.mark.parametrize("W,H", [(75, 61), (5, 3), (sweep.SWEEP_K - 3, 200),
+                                 (70, 250), (70, 244)])
+def test_sweep_blocked_kernel_bitwise_on_card(C, W, H):
+    """The K-round kernel bitwise against the plain rounds at every rounds
+    count of SWEEP_ROUNDS (one launch, a remainder, several launches), on
+    ragged domains: several tiles each way, one smaller than a tile, one
+    narrower than the ring; H a multiple of 4 (the windows staged through
+    tensor maps) and not (each thread's own copies); a non-zero G0,
+    zero-direction cells and both signs of vx and vy."""
+    _needs_card()
+    E, att, vx, vy = sweep_arrays(C, W, H, seed=C + W)
+    assert bool((vx > 0).any() and (vx < 0).any() and (vy > 0).any()
+                and (vy < 0).any() and ((vx == 0) & (vy == 0)).any())
+    G0 = torch.rand((C, W, H), device="cuda") * 2.0
+    for iters in SWEEP_ROUNDS:
+        got = sweep.transport_advance(G0, E, att, vx, vy, iters)
+        want = sweep.transport_advance_reference(G0, E, att, vx, vy, iters)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy(),
+                                      err_msg=f"{iters} rounds")
+
+
+@pytest.mark.cuda
+def test_sweep_kernel_refuses_another_geometry_on_card():
+    """The C entry refuses a geometry other than its own, and the wrapper
+    raises on the error it returns."""
+    _needs_card()
+    E, att, vx, vy = sweep_arrays(1, 40, 40)
+    G0 = torch.zeros_like(E)
+    out = torch.empty_like(E)
+    geo = sweep.sweep_geometry(
+        1, 40, 40, 2,
+        torch.cuda.get_device_properties(E.device).multi_processor_count)
+    fn = sweep._sweep_fn()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = [G0.data_ptr(), E.data_ptr(), att.data_ptr(), vx.data_ptr(),
+            vy.data_ptr(), out.data_ptr(), 1, 40, 40]
+    good = [geo.rounds, *geo.block, *geo.grid, geo.ring, geo.smem]
+    assert fn(*args, *good, stream) == 0
+    for j, bad in ((0, sweep.SWEEP_K + 1), (1, 128), (3, geo.grid[0] + 1),
+                   (4, 2), (5, geo.ring - 1), (6, geo.smem + 4)):
+        wrong = list(good)
+        wrong[j] = bad
+        assert fn(*args, *wrong, stream) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
