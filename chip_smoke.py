@@ -15,10 +15,12 @@ noise, the headline bench (`python -m soillib_tpu_torch.bench` at 32
 rounds and `auto`, which runs the FP32 probe kernel), the flagship
 example at 1024^2 and the quality closure CohortClosure(nodes=4,
 colors=8) (the cohort kernel with
-NODES=4, once per color group and round). Each path's kernel launches
+NODES=4, once per color group and round), then reverse mode through the
+kernels (a 256^2 coupled step and a 1024^2 accumulate_decay, gradients
+against the plain path's on the card). Each path's kernel launches
 are counted from zero just before it runs and read just after; one more
-step of each erosion path is profiled by kernel. Every phase raises on
-failure. The last three lines of standard output are a JSON object
+step of each erosion path, and one accumulate, is profiled by kernel.
+Every phase raises on failure. The last three lines of standard output are a JSON object
 describing each kernel (its launches on its path, its error against the
 plain version on the path's own inputs, its time, the plain version's
 time and its bound), the card's name and power limit, and the final
@@ -591,8 +593,11 @@ def phase_dem(n=4096, seed=17):
         filled, ops["fill_depressions"] = timed(
             lambda: soil.fill_depressions(h))
         flow, ops["steepest"] = timed(lambda: soil.steepest(filled, soil.d8))
-        area, ops["accumulate"] = timed(
-            lambda: soil.accumulate(flow, rain, soil.d8))
+        # The process's first accumulate, its helpers timed (a synchronise
+        # around each): where a cold call's time goes.
+        with SegmentTimer(accumulate_segments()) as cold:
+            area, ops["accumulate"] = timed(
+                lambda: soil.accumulate(flow, rain, soil.d8))
         decayed, ops["accumulate_decay"] = timed(
             lambda: soil.accumulate_decay(flow, rain, 0.9999, soil.d8))
         grad, ops["gradient"] = timed(lambda: soil.gradient(filled, scale))
@@ -628,7 +633,8 @@ def phase_dem(n=4096, seed=17):
         f"{total:.0f} of {n * n} cells' rain")
     return {"ops_ms": ops, "launches": launches, "local": loc.calls,
             "trace": tr.calls, "sweep": sw.calls, "flow": flow,
-            "rain": rain, "area": area, "decayed": decayed}
+            "rain": rain, "area": area, "decayed": decayed,
+            "accumulate_cold_segments_ms": cold.ms}
 
 
 def bitwise_err(name, got, want):
@@ -677,20 +683,21 @@ def tile_entries(dem):
             plain_ms.append(ms)
             del want
         args, out = dem[kind][0]
-        rounds = out[-1]
+        # Per tile: the dependency depth (>= 0) where the schedule ran, or
+        # minus the Jacobi rounds where the tile took that branch.
+        rounds = out[-1].cpu()
+        depth = rounds[rounds >= 0].float()
+        jacobi = int((rounds < 0).sum())
         W, H = args[0].shape
         fn = gt.local_fp_cuda if kind == "local" else gt.trace_cuda
-        ms = cuda_ms(lambda: fn(*args), 5)
+        ms = cuda_ms(lambda: fn(*args), 20)
         # The function's own work: each edge of the forest carries its
         # value once, so 16 B per cell (slot and two f32 in, one 4-B word
         # out, or slot and weight in, X and D out) and a few operations
-        # per cell; the bytes decide. What the Jacobi rounds add, per cell
-        # and round (the push's w * (src + G) and one add per edge, the
-        # trace's one multiply), is reported apart as `iter_ops`.
+        # per cell (the push's w * (src + G) and one add per edge, the
+        # trace's one multiply); the bytes decide.
         nbytes = 16 * W * H
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        per_cell_round = 3 if kind == "local" else 1
-        iter_ops = per_cell_round * gt.TILE * gt.TILE * float(rounds.sum())
         entries.append({
             "name": f"tile_{kind}",
             "route": "cuda",
@@ -707,19 +714,185 @@ def tile_entries(dem):
             "bytes_bound_ms": bytes_ms,
             "shape": [W, H],
             "calls_checked_bitwise": len(dem[kind]),
-            "tile_rounds_max": int(rounds.max()),
-            "tile_rounds_mean": float(rounds.float().mean()),
+            "tile_depth_max": int(depth.max()) if len(depth) else None,
+            "tile_depth_mean": float(depth.mean()) if len(depth) else None,
+            "jacobi_tiles": jacobi,
+            "tiles": int(rounds.numel()),
             "bytes_per_cell": 16,
-            "iter_ops": iter_ops,
-            "iter_ops_ms": iter_ops / PEAK_F32_PER_S * 1e3,
         })
         log(f"  tile_{kind}: {len(dem[kind])} calls bitwise equal to plain "
-            f"(max abs err {max(errs):.3e}); {ms:.3f} ms/launch, plain "
+            f"(max abs err {max(errs):.3e}); {ms:.4f} ms/launch, plain "
             f"{plain_ms[0]:.1f} ms, byte bound {bytes_ms:.4f} ms; tile "
-            f"rounds max {int(rounds.max())} mean "
-            f"{float(rounds.float().mean()):.1f}")
+            f"depth max {entries[-1]['tile_depth_max']} mean "
+            f"{entries[-1]['tile_depth_mean']}; {jacobi} of "
+            f"{rounds.numel()} tiles took the Jacobi branch")
     gt.tile_launches.update(saved)
     return entries
+
+
+class SegmentTimer:
+    """While active, each call of the wrapped module functions is timed on
+    the host clock between two synchronises and added to its label's
+    total (the calls of `accumulate_tiled` do not nest)."""
+
+    def __init__(self, targets):
+        self.targets = targets   # (module, name, label)
+        self.ms = {label: 0.0 for _, _, label in targets}
+        self.calls = dict.fromkeys(self.ms, 0)
+
+    def __enter__(self):
+        self.real = [getattr(m, n) for m, n, _ in self.targets]
+        for (m, n, label), real in zip(self.targets, self.real):
+            def wrapped(*a, _real=real, _label=label, **kw):
+                out, ms = timed(lambda: _real(*a, **kw))
+                self.ms[_label] += ms
+                self.calls[_label] += 1
+                return out
+            setattr(m, n, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n, _), real in zip(self.targets, self.real):
+            setattr(m, n, real)
+
+
+def accumulate_segments():
+    """The helpers of the tiled accumulation that `SegmentTimer` times: the
+    tile kernels; phase 3's boundary set, closed-form ranks and operator
+    doubling (whose rounds each read a flag on the host); the slot-graph
+    glue."""
+    from soillib_tpu_torch.ops import graph, graph_tiled as gt
+
+    return [(graph, "graph_to_slots", "graph_to_slots"),
+            (gt, "_local_slot", "_local_slot"),
+            (gt, "_pull", "_pull (receivers)"),
+            (gt, "local_fp_cuda", "tile push (phases 1, 4)"),
+            (gt, "trace_cuda", "tile trace (phase 2)"),
+            (gt, "_boundary_indices", "_boundary_indices (host numpy)"),
+            (gt, "_boundary_rank", "_boundary_rank"),
+            (graph, "operator_doubling", "operator_doubling")]
+
+
+def accumulate_breakdown(dem, edge=1):
+    """Where one accumulate of the DEM path goes (4096^2, D8, unit rain):
+    the host-clock time of each helper (`accumulate_segments`) between
+    synchronises, in the path's own first call (cold) and in a later one
+    (warm), the rest of the call (the inline gathers, index_add, scatter
+    and sums) as the remainder; then the device time by kernel from
+    torch.profiler over one more call, and the device's idle share of
+    it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.ops import graph_tiled as gt
+
+    flow, rain = dem["flow"], dem["rain"]
+    saved = dict(gt.tile_launches)
+    cold = dict(dem["accumulate_cold_segments_ms"])
+    cold["rest (gathers, index_add, scatter, sums)"] = \
+        dem["ops_ms"]["accumulate"] - sum(cold.values())
+    soil.accumulate(flow, rain, soil.d8)   # warm
+    with SegmentTimer(accumulate_segments()) as seg:
+        _, total = timed(lambda: soil.accumulate(flow, rain, soil.d8))
+    parts = dict(seg.ms)
+    parts["rest (gathers, index_add, scatter, sums)"] = \
+        total - sum(seg.ms.values())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(lambda: soil.accumulate(flow, rain, soil.d8))
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0.0) + \
+                float(e.self_device_time_total) / 1e3
+    busy = sum(kernels.values())
+    top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:10])
+    gt.tile_launches.update(saved)
+    out = {"cold_accumulate_ms": dem["ops_ms"]["accumulate"],
+           "cold_segments_ms": cold,
+           "accumulate_ms": total, "segments_ms": parts,
+           "segment_calls": seg.calls, "profiled_wall_ms": wall,
+           "device_busy_ms": busy,
+           "idle_share": max(0.0, 1.0 - busy / wall) if wall else None,
+           "top_device_kernels_ms": top}
+    log("  accumulate 4096^2 breakdown: " + json.dumps(out))
+    if busy <= 0.0:
+        log("  profiler recorded no device time: device split not "
+            "measured")
+    return out
+
+
+def phase_gradients(n=256, iters=32, n_acc=1024):
+    """Reverse mode through the kernels on the card: the gradient of one
+    coupled step (sum of discharge^2 + height^2 w.r.t. the initial
+    terrain, n^2, `iters` rounds; the cohort solves through DiffableCohort)
+    and of one accumulate_decay (w.r.t. the value and a per-cell decay at
+    n_acc^2; through DiffableTiledAccumulate), each against the plain path
+    on the card (the plain rounds; pointer doubling), rtol 1e-5 with an
+    absolute floor of 1e-5 of the gradient's scale. Returns the max
+    errors."""
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.models.simulation import erode_step
+    from soillib_tpu_torch.ops import cohort, graph_tiled as gt
+
+    p = soil.ErosionParams()
+    p.transportIterations = iters
+    h0 = terrain(n, 23)
+
+    def step_grad():
+        h = h0.clone().requires_grad_(True)
+        st = soil.ErosionState.zeros((n, n), height=h)
+        out = erode_step(st, (0.1, 0.1, 4.0), p)
+        loss = (out.discharge ** 2).sum() + (out.height ** 2).sum()
+        return torch.autograd.grad(loss, h)[0]
+
+    zero_counts(cohort.cohort_round_launches, cohort.cohort_rounds)
+    g_k = step_grad()
+    if not nonzero(cohort.cohort_round_launches):
+        raise AssertionError("gradient step: no cohort kernel launch")
+    run = cohort.run_cohort
+
+    def plain(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
+        return cohort.cohort_advance_reference(st0, aux, rules, iters, Llen,
+                                               closure=closure, tol=tol)[1]
+
+    cohort.run_cohort = plain
+    try:
+        g_p = step_grad()
+    finally:
+        cohort.run_cohort = run
+    errs = {"coupled step": check_close(
+        "coupled-step gradient", g_k, g_p, 1e-5,
+        1e-5 * float(g_p.abs().max()))}
+
+    flow = soil.steepest(terrain(n_acc, 29) * 400.0, soil.d8)
+    rng = torch.Generator(device="cuda").manual_seed(31)
+    v0 = torch.rand((n_acc, n_acc), device="cuda", generator=rng) + 0.5
+    d0 = torch.rand((n_acc, n_acc), device="cuda", generator=rng) * 0.2 + 0.8
+    ct = torch.randn((n_acc, n_acc), device="cuda", generator=rng)
+
+    def acc_grad(method):
+        v = v0.clone().requires_grad_(True)
+        d = d0.clone().requires_grad_(True)
+        a = soil.accumulate_decay(flow, v, d, soil.d8, method=method)
+        return torch.autograd.grad((a * ct).sum(), (v, d))
+
+    n0 = gt.tile_launches["local"]
+    got = acc_grad(None)
+    if gt.tile_launches["local"] == n0:
+        raise AssertionError("gradient accumulate: no tile kernel launch")
+    want = acc_grad("doubling")
+    for name, x, y in zip(("value", "decay"), got, want):
+        errs[f"accumulate_decay d/d{name}"] = check_close(
+            f"accumulate_decay gradient w.r.t. {name}", x, y, 1e-5,
+            1e-5 * float(y.abs().max()))
+    log("  gradient max abs err vs the plain path: " + json.dumps(errs))
+    return errs
 
 
 def torch_arange_grid(t):
@@ -1391,6 +1564,8 @@ def main():
     log("phase 7: DEM kernels vs plain on the path's own inputs")
     entries += tile_entries(dem)
     accumulate_checks(dem)
+    log("where the time goes: one 4096^2 accumulate")
+    accumulate_breakdown(dem)
     entries.append(sweep_entry("transport_sweep[C=1]", dem["sweep"],
                                dem["launches"]["sweep"],
                                dem["launches"]["sweep_rounds"]))
@@ -1434,6 +1609,9 @@ def main():
     torch.cuda.empty_cache()
     entries.append(nodes_entry(q_captured, q_launches))
     del q_captured
+
+    log("phase 14: gradients through the kernels vs the plain path")
+    phase_gradients()
 
     # The round bounds weigh exp, division and sqrt by the probe's costs.
     costs = probe["fp32"]["costs"]

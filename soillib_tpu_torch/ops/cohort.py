@@ -36,7 +36,10 @@ Two execution paths, chosen by the tensors' device in `run_cohort`:
     ROUNDS_PER_LAUNCH rounds per launch; node and color solves one launch
     per round and color group, the groups in order into the same
     deposits. It takes the rule sets this package defines (`rules.kind`
-    "fluvial" or "debris") and raises on anything else.
+    "fluvial" or "debris") and raises on anything else. The kernels have
+    no reverse mode: `run_cohort` goes through `DiffableCohort`, whose
+    backward replays the plain rounds checkpointed per block, as the JAX
+    package differentiates the solve.
 Ported closures: the default, plus `nodes` in (1, 2, 4) with
 node_rule="face" and any `colors` (see `_check_closure`).
 """
@@ -49,7 +52,9 @@ import os
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from soillib_tpu_torch.ops.sweep import HALO_K, _vjp_checkpointed
 from soillib_tpu_torch.ops.transport import stepsize_expected
 
 _EPS = 1e-12
@@ -829,6 +834,12 @@ def cohort_advance_cuda(st, aux, rules, iters, Llen, tol=0.0, closure=None):
     round. `tol` > 0 reads the adaptive exit criterion every
     TOL_CHECK_ROUNDS rounds, always at a launch boundary (one host read
     each). Returns (advanced state, deposits)."""
+    return _advance_cuda(st, aux, rules, iters, Llen, tol, closure)[:2]
+
+
+def _advance_cuda(st, aux, rules, iters, Llen, tol, closure):
+    """`cohort_advance_cuda`, returning (state, deposits, rounds run): with
+    `tol` > 0 the rounds run stop at a TOL_CHECK_ROUNDS check."""
     cl = _check_closure(closure)
     st = as_stack(st).contiguous()
     aux = as_stack(aux).contiguous()
@@ -857,16 +868,69 @@ def cohort_advance_cuda(st, aux, rules, iters, Llen, tol=0.0, closure=None):
                                out=out[g], nodes=nnodes)
         st = out
         i += rounds
+    return st, G, i
+
+
+def _plain_rounds(st, G, aux, rules, Llen, closure, n):
+    for _ in range(n):
+        st, G = cohort_round(st, G, aux, rules, Llen, closure)
     return st, G
+
+
+def _cohort_checkpointed(st0, aux, rules, iters, Llen, closure):
+    """Deposits of `iters` plain rounds from G = 0 (`cohort_advance_reference`
+    at tol = 0), rematerialized per HALO_K-round block: reverse mode keeps
+    only the block-boundary (state, deposits) and recomputes each block's
+    rounds in the backward pass."""
+    C = n_deposits(st0.shape[0], closure)
+    st = st0
+    G = torch.zeros((C,) + tuple(st0.shape[1:]), dtype=st0.dtype,
+                    device=st0.device)
+    n_full, rem = divmod(int(iters), HALO_K)
+    for n in [HALO_K] * n_full + ([rem] if rem else []):
+        st, G = checkpoint(
+            lambda s_, g_, n=n: _plain_rounds(s_, g_, aux, rules, Llen,
+                                              closure, n),
+            st, G, use_reentrant=False)
+    return G
+
+
+class DiffableCohort(torch.autograd.Function):
+    """The cohort solve through the kernels (`cohort_advance_cuda`) with a
+    plain reverse pass: the backward replays exactly the rounds the
+    forward ran (with `tol` > 0 the kernel path stops at a
+    TOL_CHECK_ROUNDS check, not at the plain exit round) as plain
+    `cohort_round`s at tol = 0, checkpointed per HALO_K-round block.
+    Cotangents for the state and aux; `rules`, `iters`, `Llen`, `closure`
+    and `tol` get None."""
+
+    @staticmethod
+    def forward(ctx, st0, aux, rules, iters, Llen, closure, tol):
+        _, G, ran = _advance_cuda(st0, aux, rules, iters, Llen, tol, closure)
+        ctx.args = (rules, ran, Llen, closure)
+        ctx.save_for_backward(st0, aux)
+        return G
+
+    @staticmethod
+    def backward(ctx, ct):
+        rules, ran, Llen, closure = ctx.args
+        if ran == 0:
+            return (None,) * 7
+        grads = _vjp_checkpointed(
+            ctx.saved_tensors, ct,
+            lambda s, a: _cohort_checkpointed(s, a, rules, ran, Llen,
+                                              closure))
+        return (*grads, None, None, None, None, None)
 
 
 def run_cohort(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
     """Device-dispatched single-device cohort solve -> deposits: CUDA
-    tensors launch the kernel, CPU tensors run the plain rounds."""
+    tensors launch the kernel (reverse mode through DiffableCohort), CPU
+    tensors run the plain rounds."""
     st = as_stack(st0)
     if st.device.type == "cuda":
-        return cohort_advance_cuda(st, aux, rules, int(iters), Llen,
-                                   tol=tol, closure=closure)[1]
+        return DiffableCohort.apply(st, as_stack(aux), rules, int(iters),
+                                    Llen, closure, tol)
     if st.device.type != "cpu":
         raise ValueError(f"no cohort solve for device {st.device}")
     return cohort_advance_reference(st, aux, rules, int(iters), Llen,

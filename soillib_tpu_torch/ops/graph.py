@@ -196,7 +196,8 @@ def _edge_weights(graph, decay, edge: int):
         return torch.ones((W, H), dtype=torch.float32, device=dev)
     d = torch.as_tensor(decay, dtype=torch.float32, device=dev)
     if d.dim() == 0:
-        d = torch.full((W, H), float(d), dtype=torch.float32, device=dev)
+        # expand, not a fresh tensor: a decay that requires grad keeps it.
+        d = d.expand(W, H)
     if edge == D4:
         # my_decay<D4>: all compacted slots < 4 -> never the exponent.
         return d

@@ -20,14 +20,22 @@ semantics included).
 Phases 1, 2 and 4 are per-tile fixed points: every tile's solve is self-
 contained. On CUDA tensors each is one launch of a hand-written kernel
 (csrc/tile_accumulate.cu) that loads a tile into shared memory once and
-iterates there until the tile is bitwise stable; on CPU tensors the plain
-full-grid `fixed_point` runs. A tile converges exactly, so the result does
-not depend on whether the check runs every round (kernel) or every BLOCK
-rounds (plain): the two agree bitwise. The kernel masks the grid's ragged
-edge itself, so nothing is padded to a multiple of the tile (the JAX
-package's `_pad_tiles` has no counterpart). Phase 3's `index_add` uses
-atomics on the card, so whole accumulations agree with the plain solver
-to f32 roundoff, not bitwise.
+computes each cell once, in dependency order (the converged value of the
+fixed point is a fixed expression of the cell's donors or receiver); a
+tile whose in-tile graph has a cycle, or whose dependency depth exceeds
+the round cap, runs the Jacobi rounds instead, in the same launch. On CPU
+tensors the plain full-grid `fixed_point` runs. Both evaluate the same
+operations in the same order, so the two agree bitwise. The kernel masks
+the grid's ragged edge itself, so nothing is padded to a multiple of the
+tile (the JAX package's `_pad_tiles` has no counterpart). Phase 3's
+`index_add` uses atomics on the card, so whole accumulations agree with
+the plain solver to f32 roundoff, not bitwise.
+
+Gradients: the kernels have no reverse mode, so `accumulate_tiled` on the
+card goes through `DiffableTiledAccumulate`, whose backward is the
+vector-Jacobian product of the mathematically identical pointer-doubling
+accumulation (ops/graph.py `_accumulate_doubling`), the form the JAX
+package differentiates off the TPU.
 """
 
 from __future__ import annotations
@@ -207,8 +215,12 @@ def _launch(fn_name, ptrs, W, H, edge, max_iters, device):
 
 def local_fp_cuda(lslot, src, w, edge, max_iters):
     """Phase 1/4 on the card: one launch, one block per 128² tile, each
-    iterating in shared memory until its tile is bitwise stable (or
-    `_tile_cap(max_iters)` rounds). Returns (G, rounds run per tile)."""
+    cell computed once in dependency order in shared memory; a tile with
+    an in-tile cycle or a depth above `_tile_cap(max_iters)` runs the
+    Jacobi rounds under that cap instead. Returns (G, rounds): per tile
+    (x-major over the tile grid) its dependency depth L >= 0 (the longest
+    in-tile chain in edges), or -r where it took the Jacobi branch and ran
+    r rounds."""
     W, H = _check_tile_inputs(edge, lslot=(lslot, torch.int32),
                               src=(src, torch.float32),
                               w=(w, torch.float32))
@@ -221,9 +233,11 @@ def local_fp_cuda(lslot, src, w, edge, max_iters):
 
 
 def trace_cuda(slot, w, edge, max_iters):
-    """Phase 2 on the card: one launch, one block per tile. The kernel
-    derives the cut edges and the receivers' flat indices from `slot`.
-    Returns (X, D, rounds run per tile)."""
+    """Phase 2 on the card: one launch, one block per tile, each cell
+    computed once after its in-tile receiver. The kernel derives the cut
+    edges and the receivers' flat indices from `slot`. Returns (X, D,
+    rounds), `rounds` as in `local_fp_cuda` (L: the longest chain from a
+    cell to its tile's exit or root, in edges)."""
     W, H = _check_tile_inputs(edge, slot=(slot, torch.int32),
                               w=(w, torch.float32))
     X = torch.empty_like(slot)
@@ -235,24 +249,64 @@ def trace_cuda(slot, w, edge, max_iters):
     return X, D, rounds
 
 
+def _receiver_graph(slot, edge):
+    """Flat-index receiver graph (-1 at roots) of a slot graph."""
+    W, H = slot.shape
+    n = torch.arange(W * H, dtype=torch.int32,
+                     device=slot.device).reshape(W, H)
+    return torch.where(slot < 0, -1, _pull(n, slot, edge, 0))
+
+
+class DiffableTiledAccumulate(torch.autograd.Function):
+    """`accumulate_tiled` through the tile kernels with a plain reverse
+    pass: the vector-Jacobian product of pointer doubling over the same
+    receiver forest and edge weights (the same linear map), with
+    cotangents for the value and the weights."""
+
+    @staticmethod
+    def forward(ctx, value, weight, slot, edge, max_iters):
+        ctx.edge = edge
+        ctx.save_for_backward(value, weight, slot)
+        return _accumulate_tiled(slot, value, weight, edge, max_iters, True)
+
+    @staticmethod
+    def backward(ctx, ct):
+        from soillib_tpu_torch.ops.graph import _accumulate_doubling
+        from soillib_tpu_torch.ops.sweep import _vjp_checkpointed
+
+        value, weight, slot = ctx.saved_tensors
+        g = _receiver_graph(slot, ctx.edge)
+        gv, gw = _vjp_checkpointed(
+            (value, weight), ct, lambda v, w: _accumulate_doubling(g, v, w))
+        return gv, gw, None, None, None
+
+
 def accumulate_tiled(direction_slots, value, weight=None, edge: int = D8,
                      max_iters: int = None, tile_solver: str = None):
     """Exact upstream accumulation via the two-level scheme.
 
     Args match ops.graph_sweep.accumulate_stencil; the result equals the
     single-level fixed point / pointer doubling. `tile_solver` picks the
-    phase-1/2/4 engine: "cuda" (the tile kernels; CUDA tensors only),
-    "plain" (full-grid fixed points, on any device), None = by device.
+    phase-1/2/4 engine: "cuda" (the tile kernels; CUDA tensors only;
+    reverse mode through `DiffableTiledAccumulate`), "plain" (full-grid
+    fixed points, on any device), None = by device.
     """
-    slot = direction_slots
     v = value.to(torch.float32)
-    W, H = v.shape
     if tile_solver is None:
         tile_solver = "cuda" if v.device.type == "cuda" else "plain"
     if tile_solver not in ("cuda", "plain"):
         raise ValueError(f"unknown tile solver: {tile_solver!r}")
-    use_cuda = tile_solver == "cuda"
     w = torch.ones_like(v) if weight is None else weight.to(torch.float32)
+    if tile_solver == "cuda":
+        return DiffableTiledAccumulate.apply(v, w, direction_slots, edge,
+                                             max_iters)
+    return _accumulate_tiled(direction_slots, v, w, edge, max_iters, False)
+
+
+def _accumulate_tiled(slot, v, w, edge, max_iters, use_cuda):
+    """The two-level scheme on float32 value `v` and weights `w`, phases
+    1/2/4 by the tile kernels (`use_cuda`) or the plain fixed points."""
+    W, H = v.shape
     if W <= TILE and H <= TILE:
         if not use_cuda:
             return accumulate_stencil(slot, v, w, edge, max_iters)

@@ -439,10 +439,79 @@ def test_tile_kernels_match_plain_on_card(case, W, H):
     np.testing.assert_array_equal(G.cpu().numpy(), G_p.cpu().numpy())
     np.testing.assert_array_equal(X.cpu().numpy(), X_p.cpu().numpy())
     np.testing.assert_array_equal(D.cpu().numpy(), D_p.cpu().numpy())
+    # Every tile finishes under the dependency schedule: `rounds` holds
+    # each tile's depth (>= 0), not Jacobi rounds (< 0).
+    assert int(rounds.min()) >= 0 and int(trounds.min()) >= 0
     if case == "serpentine":
-        # 128^2 - 1 edges on the path: 128^2 - 1 rounds to settle, one
-        # more to see it settled, which is also the cap.
-        assert int(rounds[0]) == iters and int(trounds[0]) == iters
+        # 128^2 - 1 edges on the path: the first tile's depth in both
+        # kernels.
+        assert int(rounds[0]) == iters - 1 and int(trounds[0]) == iters - 1
+
+
+def _tile_pair(slot, edge, src, w, iters):
+    """(kernel, plain) results of phases 1/4 and 2 on the card, and the
+    kernels' per-tile rounds."""
+    W, H = slot.shape
+    lslot, cross = gt._local_slot(W, H, slot, edge)
+    n = torch.arange(W * H, dtype=torch.int32, device="cuda").reshape(W, H)
+    recv = gt._pull(n, slot, edge, 0)
+    G, rounds = gt.local_fp_cuda(lslot.contiguous(), src, w, edge, iters)
+    X, D, trounds = gt.trace_cuda(slot.contiguous(), w, edge, iters)
+    G_p = gt.local_fp_plain(lslot, src, w, edge, iters)
+    X_p, D_p = gt.trace_plain(slot, cross, recv, w, edge, iters)
+    torch.cuda.synchronize()
+    for got, want, what in ((G, G_p, "G"), (X, X_p, "X"), (D, D_p, "D")):
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy(),
+                                      err_msg=what)
+    return rounds.cpu(), trounds.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d8", [0, 1])
+def test_tile_kernels_with_a_cycle_on_card(d8):
+    """A two-cell cycle in the first tile: that tile never finishes under
+    the schedule and runs the Jacobi branch under the cap (256 rounds),
+    bitwise equal to the plain fixed points; the other tiles keep the
+    schedule."""
+    _needs_card()
+    W, H = 300, 260
+    slot = terrain_slots(W, H, d8, seed=7)
+    shifts = [tuple(int(v) for v in sh) for sh in
+              graph.shifts_for(d8)]
+    slot[40, 40] = shifts.index((1, 0))
+    slot[41, 40] = shifts.index((-1, 0))
+    rng = np.random.default_rng(7)
+    src = torch.from_numpy(rng.uniform(0.5, 2.0, (W, H)).astype(
+        np.float32)).cuda()
+    w = torch.from_numpy(rng.uniform(0.8, 1.0, (W, H)).astype(
+        np.float32)).cuda()
+    rounds, trounds = _tile_pair(slot, d8, src, w, 256)
+    assert int(rounds[0]) < 0 and int(trounds[0]) < 0
+    assert int(rounds[1:].min()) >= 0 and int(trounds[1:].min()) >= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [32, 4096, 16383])
+def test_tile_kernels_with_a_binding_cap_on_card(iters):
+    """The serpentine (depth 128^2 - 1 in its first tile) under a cap of
+    `_tile_cap(iters)` rounds: below the depth the first tile runs that
+    many Jacobi rounds and returns the plain version's truncated sums;
+    at 16383 the cap (16384) covers the depth. The other tiles' +x
+    chains (up to 127 edges) keep the schedule where the cap covers them.
+    Bitwise either way."""
+    _needs_card()
+    W, H = 200, 140
+    slot = serpentine_slots(W, H)
+    rng = np.random.default_rng(2)
+    src = torch.from_numpy(rng.uniform(0.5, 2.0, (W, H)).astype(
+        np.float32)).cuda()
+    w = torch.ones_like(src)
+    rounds, trounds = _tile_pair(slot, 0, src, w, iters)
+    cap = gt._tile_cap(iters)
+    want = gt.TILE ** 2 - 1 if cap >= gt.TILE ** 2 - 1 else -cap
+    assert int(rounds[0]) == want and int(trounds[0]) == want
+    if cap >= gt.TILE - 1:
+        assert int(rounds[1:].min()) >= 0 and int(trounds[1:].min()) >= 0
 
 
 @pytest.mark.cuda
@@ -469,6 +538,104 @@ def test_accumulate_on_card_matches_plain_and_doubling(case, W, H):
     assert gt.tile_launches["local"] > n0
     roots = g < 0
     assert abs(float(area[roots].double().sum()) - W * H) <= 1e-4 * W * H
+
+
+# ---------------------------------------------------------------------------
+# Gradients through the kernels: the autograd Functions (kernel forward,
+# plain backward) against the plain paths' own autograd gradients.
+# ---------------------------------------------------------------------------
+
+
+def _cohort_grads(solve, st, aux):
+    s = st.clone().requires_grad_(True)
+    a = aux.clone().requires_grad_(True)
+    G = solve(s, a)
+    assert G.requires_grad
+    return G.detach(), torch.autograd.grad((G * G).sum(), (s, a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nodes", [1, 4])
+def test_cohort_autograd_on_card(nodes):
+    """run_cohort on the card carries a graph (DiffableCohort): one node
+    with the `tol` exit (the kernel path stops at its 16-round check, and
+    the backward replays the rounds it ran) and NODES=4; the gradients for
+    the state and aux equal the plain rounds' own autograd gradient at
+    rtol 1e-5 / atol 1e-5."""
+    if nodes == 1:
+        p = ErosionParams()
+        p.evapRate = 50.0
+        p.depositionRateFluvial = 50.0
+        st, aux = _on_card(*cohort_arrays("fluvial", True, 48, 40, seed=3,
+                                          aux3_scale=50.0))
+        tr = port_rules("fluvial", True, 48, 40, p)
+        cl, iters, tol = None, 88, TOL
+    else:
+        st, aux = _on_card(*node_state("fluvial", True, 4, 40, 36))
+        tr = port_rules("fluvial", True, 40, 36)
+        cl, iters, tol = soil.CohortClosure(nodes=4), 5, 0.0
+    key = cohort.launch_key("fluvial", nodes)
+    r0 = cohort.cohort_rounds[key]
+    G, got = _cohort_grads(lambda s, a: cohort.run_cohort(
+        s, a, tr, iters, LLEN, cl, tol=tol), st, aux)
+    ran = cohort.cohort_rounds[key] - r0
+    if nodes == 1:
+        assert 0 < ran < iters and ran % cohort.TOL_CHECK_ROUNDS == 0
+    else:
+        assert ran == iters
+    G_p, want = _cohort_grads(lambda s, a: cohort.cohort_advance_reference(
+        s, a, tr, ran, LLEN, closure=cl)[1], st, aux)
+    _close(G, G_p, 2e-5, 1e-5, "deposits")
+    for g, w, what in zip(got, want, ("state", "aux")):
+        _close(g, w, 1e-5, 1e-5, f"{what} gradient")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,W,H", [("terrain-d8", 300, 260),
+                                      ("terrain-d4", 100, 90)])
+def test_accumulate_autograd_on_card(case, W, H):
+    """accumulate and accumulate_decay through the tile kernels carry a
+    graph (DiffableTiledAccumulate): the gradients w.r.t. the value and a
+    per-cell decay tensor equal pointer doubling's own autograd gradient
+    at rtol 1e-5 with an absolute floor of 1e-5 of the gradient's scale
+    (both run index_add with atomics on the card), and the plain tiled
+    solver's."""
+    _needs_card()
+    slot, edge = _slots(case, W, H)
+    g = torch.where(slot < 0, -1, gt._pull(torch.arange(
+        W * H, dtype=torch.int32, device="cuda").reshape(W, H), slot, edge,
+        0))
+    rng = np.random.default_rng(W)
+    v0 = torch.from_numpy(rng.uniform(0.5, 2.0, (W, H)).astype(
+        np.float32)).cuda()
+    d0 = torch.from_numpy(rng.uniform(0.8, 1.0, (W, H)).astype(
+        np.float32)).cuda()
+    ct = torch.from_numpy(rng.normal(size=(W, H)).astype(np.float32)).cuda()
+
+    def grads(method):
+        v = v0.clone().requires_grad_(True)
+        d = d0.clone().requires_grad_(True)
+        a = soil.accumulate(g, v, edge, method=method)
+        b = soil.accumulate_decay(g, v, d, edge, method=method)
+        assert a.requires_grad and b.requires_grad
+        return torch.autograd.grad((a * ct).sum() + (b * ct).sum(), (v, d))
+
+    def plain_tiled():
+        v = v0.clone().requires_grad_(True)
+        d = d0.clone().requires_grad_(True)
+        w = graph._edge_weights(g, d, edge)
+        a = gt.accumulate_tiled(slot, v, None, edge, tile_solver="plain")
+        b = gt.accumulate_tiled(slot, v, w, edge, tile_solver="plain")
+        return torch.autograd.grad((a * ct).sum() + (b * ct).sum(), (v, d))
+
+    n0 = gt.tile_launches["local"]
+    got = grads(None)
+    assert gt.tile_launches["local"] > n0
+    for what, want in (("doubling", grads("doubling")),
+                       ("plain tiled", plain_tiled())):
+        for x, y, name in zip(got, want, ("value", "decay")):
+            _close(x, y, 1e-5, 1e-5 * float(y.abs().max()),
+                   f"{name} gradient vs {what}")
 
 
 # ---------------------------------------------------------------------------
