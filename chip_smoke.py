@@ -17,7 +17,16 @@ example at 1024^2 and the quality closure CohortClosure(nodes=4,
 colors=8) (the cohort kernel with
 NODES=4, once per color group and round), then reverse mode through the
 kernels (a 256^2 coupled step and a 1024^2 accumulate_decay, gradients
-against the plain path's on the card). Each path's kernel launches
+against the plain path's on the card), the multiscale cascade at the
+reference's levels (128^2 x 2048 steps, 256^2 x 4, 1000^2 x 4; the
+cohort solves of each level's first and last step held bitwise against
+the plain rounds), the 128^2 x 30-step trajectory golden of
+tests/test_golden.py on the card, and the DEM and TIFF examples
+(dem_process 1024^2, dem_condition 512^2, dem_multiflow 1024^2 with 512
+members; the kernel calls of dem_process and of one dem_multiflow batch
+held bitwise against plain, and the tile kernels at 1000^2 and 1000 x
+744; tiff_merge, tiff_mesh and tiff_view on two 1024^2 tiles the phase
+writes). Each path's kernel launches
 are counted from zero just before it runs and read just after; one more
 step of each erosion path, and one accumulate, is profiled by kernel.
 Every phase raises on failure. The last three lines of standard output are a JSON object
@@ -34,6 +43,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import sys
 import time
 
@@ -482,6 +492,17 @@ def phase_faithful_depth(n=1024):
     return rounds, ms
 
 
+def idle_share(busy_ms, wall_ms, what):
+    """1 - busy / wall, not clipped: a negative share (more device time
+    than the wall time it is read against) is reported as inconsistent."""
+    share = 1.0 - busy_ms / wall_ms
+    if share < 0.0:
+        log(f"  {what}: device busy {busy_ms:.3f} ms exceeds the wall time "
+            f"{wall_ms:.3f} ms it is read against; the idle share {share:.4f}"
+            f" is inconsistent")
+    return share
+
+
 def phase_breakdown(sim, kernels=(("cohort_kernel_ms",
                                    "cohort_rounds_kernel"),)):
     """Device time of one more step of `sim` by kernel, from
@@ -516,7 +537,7 @@ def phase_breakdown(sim, kernels=(("cohort_kernel_ms",
         return None
     out = {"step_wall_ms": wall_ms, "device_busy_ms": busy, **split,
            "other_kernels_ms": busy - sum(split.values()),
-           "idle_share": max(0.0, 1.0 - busy / wall_ms)}
+           "idle_share": idle_share(busy, wall_ms, "profiled step")}
     log("  " + json.dumps(out))
     return out
 
@@ -652,6 +673,46 @@ def bitwise_err(name, got, want):
     return diff
 
 
+def tile_call_errs(what, kind, calls):
+    """Each recorded call (`Spy`) of a tile kernel's wrapper, kind "local"
+    (the push) or "trace", against its plain full-grid fixed point on the
+    same inputs, bitwise. Returns the max abs errors and the plain
+    versions' ms, one each a call."""
+    from soillib_tpu_torch.ops import graph_tiled as gt
+
+    errs, plain_ms = [], []
+    for i, (args, out) in enumerate(calls):
+        if kind == "local":
+            lslot, src, w, edge, iters = args
+            want, ms = timed(lambda: gt.local_fp_plain(lslot, src, w, edge,
+                                                       iters))
+            errs.append(bitwise_err(f"{what} local push, call {i}", out[0],
+                                    want))
+        else:
+            slot, w, edge, iters = args
+            _, cross = gt._local_slot(*slot.shape, slot, edge)
+            recv = gt._pull(torch_arange_grid(slot), slot, edge, 0)
+            want, ms = timed(lambda: gt.trace_plain(slot, cross, recv, w,
+                                                    edge, iters))
+            errs.append(bitwise_err(f"{what} trace X, call {i}", out[0],
+                                    want[0]))
+            errs.append(bitwise_err(f"{what} trace D, call {i}", out[1],
+                                    want[1]))
+        plain_ms.append(ms)
+        del want
+    return errs, plain_ms
+
+
+def sweep_call_errs(what, calls):
+    """Each recorded call (`Spy`) of `transport_advance_cuda` against the
+    plain rounds on the same inputs at the call's full depth, bitwise."""
+    from soillib_tpu_torch.ops import sweep
+
+    return [bitwise_err(f"{what} sweep, call {i} ({args[-1]} rounds)", out,
+                        sweep.transport_advance_reference(*args))
+            for i, (args, out) in enumerate(calls)]
+
+
 def tile_entries(dem):
     """The two tile kernels against their plain full-grid fixed points,
     bitwise, on every input the DEM path gave them (phases 1 and 4 of both
@@ -662,26 +723,7 @@ def tile_entries(dem):
     saved = dict(gt.tile_launches)
     entries = []
     for kind in ("local", "trace"):
-        plain_ms, errs = [], []
-        for i, (args, out) in enumerate(dem[kind]):
-            if kind == "local":
-                lslot, src, w, edge, iters = args
-                want, ms = timed(lambda: gt.local_fp_plain(lslot, src, w,
-                                                           edge, iters))
-                errs.append(bitwise_err(f"local push, call {i}", out[0],
-                                        want))
-            else:
-                slot, w, edge, iters = args
-                _, cross = gt._local_slot(*slot.shape, slot, edge)
-                recv = gt._pull(torch_arange_grid(slot), slot, edge, 0)
-                want, ms = timed(lambda: gt.trace_plain(slot, cross, recv, w,
-                                                        edge, iters))
-                errs.append(bitwise_err(f"trace X, call {i}", out[0],
-                                        want[0]))
-                errs.append(bitwise_err(f"trace D, call {i}", out[1],
-                                        want[1]))
-            plain_ms.append(ms)
-            del want
+        errs, plain_ms = tile_call_errs("DEM path", kind, dem[kind])
         args, out = dem[kind][0]
         # Per tile: the dependency depth (>= 0) where the schedule ran, or
         # minus the Jacobi rounds where the tile took that branch.
@@ -768,7 +810,7 @@ def accumulate_segments():
             (gt, "_pull", "_pull (receivers)"),
             (gt, "local_fp_cuda", "tile push (phases 1, 4)"),
             (gt, "trace_cuda", "tile trace (phase 2)"),
-            (gt, "_boundary_indices", "_boundary_indices (host numpy)"),
+            (gt, "_boundary_index_tensor", "boundary set (cached per shape)"),
             (gt, "_boundary_rank", "_boundary_rank"),
             (graph, "operator_doubling", "operator_doubling")]
 
@@ -816,7 +858,8 @@ def accumulate_breakdown(dem, edge=1):
            "accumulate_ms": total, "segments_ms": parts,
            "segment_calls": seg.calls, "profiled_wall_ms": wall,
            "device_busy_ms": busy,
-           "idle_share": max(0.0, 1.0 - busy / wall) if wall else None,
+           "idle_share": (idle_share(busy, wall, "profiled accumulate")
+                          if wall else None),
            "top_device_kernels_ms": top}
     log("  accumulate 4096^2 breakdown: " + json.dumps(out))
     if busy <= 0.0:
@@ -1499,6 +1542,397 @@ def nodes_entry(captured, launches, crop=2048, rounds=16):
     }
 
 
+# ---------------------------------------------------------------------------
+# The multiscale cascade, the trajectory golden and the DEM and TIFF
+# examples
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+# Level 0 of the cascade runs the reference's full 2048 steps; a smaller
+# number here is a cut, printed and recorded with the phase's results.
+CASCADE_LEVEL0_STEPS = 2048
+
+
+def sample_solves(levels):
+    """While active, keeps a copy of the cohort solve inputs (st, aux,
+    rules, Llen) of each rule set at the first and the last step of each
+    level of `levels`, recorded at the dispatch point by the grid shape
+    they come at: (W, H, kind, step within the level) -> inputs."""
+    from soillib_tpu_torch.ops import cohort
+
+    want = {tuple(r): {0, n - 1} for r, n in levels}
+    seen, kept = {}, {}
+    run = cohort.run_cohort
+
+    def spy(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
+        st, aux = cohort.as_stack(st0), cohort.as_stack(aux)
+        key = (*st.shape[1:], rules.kind)
+        i = seen[key] = seen.get(key, -1) + 1
+        if i in want.get(tuple(st.shape[1:]), ()):
+            kept[(*key, i)] = (st.clone(), aux.clone(), rules, Llen)
+        return run(st, aux, rules, iters, Llen, closure, tol)
+
+    class Sampler:
+        def __enter__(self):
+            cohort.run_cohort = spy
+            return kept
+
+        def __exit__(self, *exc):
+            cohort.run_cohort = run
+
+    return Sampler()
+
+
+def phase_cascade(level0_steps=CASCADE_LEVEL0_STEPS):
+    """The multiscale example's main at the reference's levels [(128^2,
+    2048), (256^2, 4), (1000^2, 4)] on the card (64 cohort rounds a solve,
+    the flagship example's parameters): per-level ms per step and the
+    cohort launches and rounds of the run (counted from zero), a finite
+    final state read back from multiscale.zip bitwise; then the cohort
+    solves of the first and the last step of every level, on the
+    cascade's own inputs, kernel against the plain rounds, bitwise at the
+    solve's full depth, and the kernel's time per round on each level's
+    last-step inputs."""
+    import tempfile
+
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.examples import erosion, multiscale
+    from soillib_tpu_torch.ops import cohort
+
+    levels = [(r, level0_steps if i == 0 else s)
+              for i, (r, s) in enumerate(multiscale.DEFAULT_LEVELS)]
+    cut = (None if levels == multiscale.DEFAULT_LEVELS else
+           f"level 0 cut from {multiscale.DEFAULT_LEVELS[0][1]} to "
+           f"{level0_steps} steps")
+    argv = [] if cut is None else [
+        "--levels", ",".join(f"{r[0]}:{n}" for r, n in levels)]
+    param = erosion.make_param()
+    zero_counts(cohort.cohort_round_launches, cohort.cohort_rounds)
+    with tempfile.TemporaryDirectory() as d, sample_solves(levels) as kept:
+        run, ms = timed(lambda: multiscale.main(argv + ["--out", d]))
+        loaded = soil.util.zip_load(os.path.join(d, "multiscale.zip"))
+    launches = nonzero(cohort.cohort_round_launches)
+    rounds = nonzero(cohort.cohort_rounds)
+    state = run["state"]
+    finite_state(state, "cascade")
+    if tuple(state.layers.shape) != (2, 1000, 1000):
+        raise AssertionError(f"cascade: final layers {state.layers.shape}")
+    for name in ("height", "sediment", "discharge"):
+        if not np.array_equal(loaded[name][0],
+                              getattr(state, name).cpu().numpy()):
+            raise AssertionError(f"cascade: multiscale.zip {name} differs "
+                                 f"from the final state")
+    steps = sum(n for _, n in levels)
+    it = param.transportIterations
+    want_r = {"fluvial": steps * it, "debris": steps * it}
+    want_l = {k: steps * len(cohort.launch_rounds(
+        it, cohort.ROUNDS_PER_LAUNCH)) for k in want_r}
+    if rounds != want_r or launches != want_l:
+        raise AssertionError(f"cascade: rounds {rounds} in launches "
+                             f"{launches}, expected {want_r} in {want_l}")
+    want_k = {(*r, kind, i) for r, n in levels for i in (0, n - 1)
+              for kind in ("fluvial", "debris")}
+    if set(kept) != want_k:
+        raise AssertionError(f"cascade: sampled solves {sorted(kept)}, "
+                             f"expected {sorted(want_k)}")
+
+    # The sampled solves: kernel against plain, bitwise at the solve's
+    # full depth; then the kernel's time per round on each level's
+    # last-step inputs.
+    saved = dict(cohort.cohort_round_launches), dict(cohort.cohort_rounds)
+    errs, kernel_ms = {}, {}
+    K = cohort.ROUNDS_PER_LAUNCH
+    for (W, H, kind, i), (st, aux, rules, Llen) in sorted(kept.items()):
+        st_k, g_k = cohort.cohort_advance_cuda(st, aux, rules, it, Llen)
+        st_p, g_p = cohort.cohort_advance_reference(st, aux, rules, it, Llen)
+        what = f"cascade {W}x{H} step {i} {kind} solve, {it} rounds"
+        errs[f"{kind} {W}^2 step {i}"] = max(
+            bitwise_err(f"{what}, state", st_k, st_p),
+            bitwise_err(f"{what}, deposits", g_k, g_p))
+        del st_k, g_k, st_p, g_p
+    for r, n in levels:
+        for kind in ("fluvial", "debris"):
+            st, aux, rules, Llen = kept[(*r, kind, n - 1)]
+            G = torch.zeros((st.shape[0] - cohort.NSTATE, *r),
+                            device="cuda")
+            out = torch.empty_like(st)
+            kernel_ms[f"{kind} {r[0]}^2"] = cuda_ms(
+                lambda: cohort.cohort_rounds_cuda(st, aux, G, rules, Llen,
+                                                  K, out=out), 50) / K
+    del kept
+    # Where a step's time goes at the finest and the coarsest level: one
+    # profiled step each after a warm step (level 0's on a fresh 128^2
+    # state). The profiler adds host time to every operator, so the idle
+    # share is also read against the example's own ms per step.
+    scale = soil.level_scale(multiscale.WORLD, multiscale.ZSCALE,
+                             (1000, 1000))
+    sim = soil.ErosionSim((1000, 1000), scale, param, state=state)
+    sim.step()
+    breakdown = {"1000^2": phase_breakdown(sim)}
+    del sim
+    sim = soil.ErosionSim((128, 128), soil.level_scale(
+        multiscale.WORLD, multiscale.ZSCALE, (128, 128)), param,
+        state=soil.ErosionState.zeros((128, 128), height=soil.noise(
+            (128, 128), soil.noise_t(seed=3.0, ext=(128, 128)))))
+    sim.step(2)
+    breakdown["128^2"] = phase_breakdown(sim)
+    for key, step_ms in (("128^2", run["ms_per_step"][0]),
+                         ("1000^2", run["ms_per_step"][-1])):
+        if breakdown[key]:
+            breakdown[key]["idle_share_of_unprofiled_step"] = idle_share(
+                breakdown[key]["device_busy_ms"], step_ms,
+                f"cascade {key} step")
+    cohort.cohort_round_launches.update(saved[0])
+    cohort.cohort_rounds.update(saved[1])
+    out = {"levels": [[list(r), n] for r, n in levels], "cut": cut,
+           "breakdown": breakdown,
+           "ms_per_step": run["ms_per_step"], "seconds": run["seconds"],
+           "main_ms": ms, "launches": launches, "rounds": rounds,
+           "solve_max_abs_err": errs,
+           "kernel_ms_per_round": kernel_ms}
+    log(f"  cascade {'(' + cut + ') ' if cut else ''}ms/step per level "
+        f"{[round(m, 3) for m in run['ms_per_step']]}, total "
+        f"{run['seconds']:.2f} s; cohort launches {launches}, rounds "
+        f"{rounds}; the solves of the first and last step of every level "
+        f"({len(errs)}) bitwise equal to plain; kernel ms per round "
+        f"{json.dumps({k: round(v, 4) for k, v in kernel_ms.items()})}"
+        f"; idle share of the unprofiled step "
+        f"{json.dumps({k: v and v['idle_share_of_unprofiled_step'] for k, v in breakdown.items()})}")
+    return out
+
+
+def phase_golden(n=128, steps=30, npz="golden_traj128.npz"):
+    """tests/test_golden.py's trajectory (n^2, `steps` coupled steps, 16
+    transport rounds, seed-5 noise x 0.5 + 2) on the card through the
+    cohort kernel, against tests/data/<npz>: field statistics at rtol
+    5e-3, the 16 x 16 block-mean fingerprint at rtol 1e-2 / atol 1e-3. A
+    miss raises."""
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.ops import cohort
+
+    g = np.load(os.path.join(REPO, "tests", "data", npz))
+    p = soil.ErosionParams()
+    p.transportIterations = 16
+    h = soil.noise((n, n), soil.noise_t(seed=5.0, ext=(float(n),) * 2)) \
+        * 0.5 + 2.0
+    state = soil.ErosionState.zeros((n, n), height=h)
+    zero_counts(cohort.cohort_round_launches, cohort.cohort_rounds)
+    state, ms = timed(lambda: soil.erode(state, (0.1, 0.1, 4.0), p,
+                                         steps=steps))
+    launches = nonzero(cohort.cohort_round_launches)
+    if sorted(launches) != ["debris", "fluvial"]:
+        raise AssertionError(f"golden: cohort launches {launches}")
+    finite_state(state, "golden trajectory")
+    worst = {}
+
+    def within(name, got, want, rtol, atol):
+        err = np.abs(got - want)
+        ratio = float((err / (atol + rtol * np.abs(want))).max())
+        worst[name] = ratio
+        if ratio > 1.0:
+            raise AssertionError(
+                f"golden {n}x{steps}: {name} outside rtol {rtol} / atol "
+                f"{atol} (worst error {ratio:.3f} of the allowance)")
+
+    k = n // 16
+    for name in ("height", "discharge", "sediment"):
+        arr = getattr(state, name).cpu().numpy()
+        stats = np.array([arr.mean(), arr.std(), np.abs(arr).max()])
+        within(f"{name} stats", stats, g[f"{name}_stats"], 5e-3, 0.0)
+        if name != "sediment":
+            blocks = arr.reshape(n // k, k, n // k, k).mean(axis=(1, 3))
+            within(f"{name} fingerprint", blocks, g[f"{name}_blocks"],
+                   1e-2, 1e-3)
+    log(f"  golden {n}x{steps} on the card ({ms:.0f} ms, cohort launches "
+        f"{launches}): within the golden tolerances; worst error as a "
+        f"share of the allowance {json.dumps({k: round(v, 4) for k, v in worst.items()})}")
+    return {"ms": ms, "launches": launches, "worst_share": worst}
+
+
+def ragged_tile_checks(seed=37):
+    """The tile kernels at 1000^2 and 1000 x 744 (7 full tiles and one of
+    104 cells, 5 and 104 along y at 744), D8, on the steepest graph of a
+    seeded terrain with a per-cell payload and decay: push and trace
+    bitwise equal to the plain fixed points."""
+    import torch
+
+    from soillib_tpu_torch.ops import graph, graph_tiled as gt
+
+    saved = dict(gt.tile_launches)
+    errs = {}
+    h = terrain(1000, seed) * 400.0
+    rng = torch.Generator(device="cuda").manual_seed(seed)
+    for W, H in ((1000, 1000), (1000, 744)):
+        slot = graph.graph_to_slots(
+            graph.steepest(h[:W, :H].contiguous(), 1), 1).contiguous()
+        src = torch.rand((W, H), device="cuda", generator=rng) + 0.5
+        w = torch.rand((W, H), device="cuda", generator=rng) * 0.2 + 0.8
+        lslot, cross = gt._local_slot(W, H, slot, 1)
+        recv = gt._pull(torch_arange_grid(slot), slot, 1, 0)
+        iters = gt.TILE ** 2
+        G = gt.local_fp_cuda(lslot.contiguous(), src, w, 1, iters)[0]
+        X, D = gt.trace_cuda(slot, w, 1, iters)[:2]
+        Xp, Dp = gt.trace_plain(slot, cross, recv, w, 1, iters)
+        errs[f"{W}x{H}"] = max(
+            bitwise_err(f"tile push {W}x{H}", G,
+                        gt.local_fp_plain(lslot, src, w, 1, iters)),
+            bitwise_err(f"tile trace X {W}x{H}", X, Xp),
+            bitwise_err(f"tile trace D {W}x{H}", D, Dp))
+    gt.tile_launches.update(saved)
+    log(f"  tile kernels at 1000x1000 and 1000x744 bitwise equal to plain "
+        f"(push and trace)")
+    return errs
+
+
+def write_tiles(d, n=1024, seed=41):
+    """Two adjacent n^2 GeoTIFF tiles (pixel scale 1, x offsets 0 and n)
+    of seeded terrain, as the tests write their tiles for tiff_merge."""
+    import soillib_tpu_torch as soil
+
+    for i in range(2):
+        g = soil.geotiff(terrain(n, seed + i).cpu().numpy() * 400.0)
+        g.meta.scale = [1.0, 1.0, 1.0]
+        g.meta.coords = [0, 0, 0, float(n * i), 0.0, 0.0]
+        g.write(os.path.join(d, f"tile{i}.tiff"))
+
+
+def phase_dem_examples():
+    """The DEM examples' mains on the card with --out "": dem_process at
+    1024^2, dem_condition at 512^2 and dem_multiflow at 1024^2 (K = 512,
+    batch 64), each with its tile and sweep launches counted from zero.
+    Every tile and sweep call of dem_process, and every tile call of one
+    dem_multiflow batch (the run's first, once more), is held bitwise
+    against its plain version on the call's own inputs. Then the tile
+    kernels at ragged sizes; then tiff_merge, tiff_mesh and tiff_view on
+    two 1024^2 GeoTIFF tiles: the merged raster and the PLY have the
+    expected sizes."""
+    import tempfile
+
+    import torch
+
+    from soillib_tpu_torch.examples import (
+        dem_condition,
+        dem_multiflow,
+        dem_process,
+        tiff_merge,
+        tiff_mesh,
+        tiff_view,
+    )
+    from soillib_tpu_torch.ops import graph_tiled as gt
+    from soillib_tpu_torch.ops import sweep
+
+    out = {}
+
+    def counted(name, fn, want):
+        zero_counts(gt.tile_launches, sweep.sweep_launches,
+                    sweep.sweep_rounds)
+        run, ms = timed(fn)
+        got = {"local": gt.tile_launches["local"],
+               "trace": gt.tile_launches["trace"],
+               "sweep": sweep.sweep_launches["round"],
+               "sweep_rounds": sweep.sweep_rounds["round"]}
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, expected {want}")
+        out[name] = {"launches": got, "main_ms": ms}
+        return run
+
+    def tile_spies():
+        return Spy(gt, "local_fp_cuda"), Spy(gt, "trace_cuda")
+
+    def check_calls(name, loc, tr, sw=None):
+        errs = (tile_call_errs(name, "local", loc.calls)[0]
+                + tile_call_errs(name, "trace", tr.calls)[0]
+                + (sweep_call_errs(name, sw.calls) if sw else []))
+        out[name]["calls_checked_bitwise"] = {
+            "local": len(loc.calls), "trace": len(tr.calls),
+            "sweep": len(sw.calls) if sw else 0, "max_abs_err": max(errs)}
+
+    # dem_process warms its flow pipeline once (2 + 2 push, 1 + 1 trace
+    # launches) and its sweep with a one-round solve.
+    n = 1024
+    loc, tr = tile_spies()
+    with loc, tr, Spy(sweep, "transport_advance_cuda") as sw:
+        run = counted("dem_process", lambda: dem_process.main(
+            ["--res", str(n), "--out", ""]),
+            {"local": 8, "trace": 4,
+             "sweep": 1 + len(sweep.sweep_launch_rounds(2 * n)),
+             "sweep_rounds": 1 + 2 * n})
+    check_calls("dem_process", loc, tr, sw)
+    del loc, tr, sw
+    for k in ("height", "area", "decayed", "gradient", "discharge"):
+        if not bool(torch.isfinite(run[k]).all()):
+            raise AssertionError(f"dem_process: non-finite {k}")
+    total = float(run["area"][run["flow"] < 0].double().sum())
+    if abs(total - n * n) > 1e-4 * n * n:
+        raise AssertionError(f"dem_process: roots receive {total} of "
+                             f"{n * n} cells' rain")
+    out["dem_process"]["ops_ms"] = run["ms"]
+    run = counted("dem_condition", lambda: dem_condition.main(
+        ["--res", "512", "--out", ""]),
+        {"local": 2, "trace": 1, "sweep": 0, "sweep_rounds": 0})
+    if run["pits_after"] != 0:
+        raise AssertionError(f"dem_condition: {run['pits_after']} interior "
+                             f"pits left")
+    out["dem_condition"].update(ms=run["ms"], pits=[run["pits_before"],
+                                                    run["pits_after"]])
+    K, T, batch = 512, 10.0, 64
+    run = counted("dem_multiflow", lambda: dem_multiflow.main(
+        ["--res", str(n), "--K", str(K), "--T", str(T), "--batch",
+         str(batch), "--out", ""]),
+        {"local": 2 * K, "trace": K, "sweep": 0, "sweep_rounds": 0})
+    mf = run["multiflow"]
+    if not bool(torch.isfinite(mf).all()) or float(mf.min()) < 1.0:
+        raise AssertionError("dem_multiflow: a contributing area below one "
+                             "cell or non-finite")
+    out["dem_multiflow"]["ms_per_member"] = run["ms_per_member"]
+    # The run's first batch once more (members 0-63 draw from seeds 0-63,
+    # so the kernels see the run's own inputs), its counts put back.
+    saved = dict(gt.tile_launches)
+    loc, tr = tile_spies()
+    with loc, tr:
+        dem_multiflow.multiflow(run["height"], batch, T, batch)
+    gt.tile_launches.update(saved)
+    check_calls("dem_multiflow", loc, tr)
+    del loc, tr
+    log(f"  {json.dumps(out)}")
+    out["ragged_tiles"] = ragged_tile_checks()
+
+    with tempfile.TemporaryDirectory() as d:
+        tiles = os.path.join(d, "tiles")
+        os.makedirs(tiles)
+        write_tiles(tiles)
+        merged, ms_merge = timed(lambda: tiff_merge.main(
+            [tiles, "--pscale", "1.0", "--out", ""]))
+        m = merged["merged"]
+        if tuple(m.shape) != (2048, 1024) or bool(torch.isnan(m).any()):
+            raise AssertionError(f"tiff_merge: raster {tuple(m.shape)} with "
+                                 f"{int(torch.isnan(m).sum())} NaN cells")
+        ply = os.path.join(d, "tile0.ply")
+        mesh, ms_mesh = timed(lambda: tiff_mesh.main(
+            [os.path.join(tiles, "tile0.tiff"), ply]))
+        V, F = len(mesh["mesh"].vertices), len(mesh["mesh"].faces)
+        header = len(mesh["mesh"]._header(ascii=False))
+        size = os.path.getsize(ply)
+        if (V, F) != (1024 * 1024, 2 * 1023 * 1023) or \
+                size != header + 12 * V + 13 * F:
+            raise AssertionError(f"tiff_mesh: {V} vertices, {F} faces, "
+                                 f"{size} bytes")
+        view, ms_view = timed(lambda: tiff_view.main([tiles, "--out", ""]))
+        if [a.shape for _, a in view["images"]] != [(1024, 1024)] * 2:
+            raise AssertionError("tiff_view: unexpected images")
+    out["tiff"] = {"merge_ms": ms_merge, "mesh_ms": ms_mesh,
+                   "view_ms": ms_view, "merged_shape": [2048, 1024],
+                   "ply_bytes": size}
+    log(f"  tiff_merge 2 x 1024^2 -> 2048x1024 in {ms_merge:.0f} ms; "
+        f"tiff_mesh {V} vertices, {F} faces, {size} B in {ms_mesh:.0f} ms; "
+        f"tiff_view {ms_view:.0f} ms")
+    return out
+
+
 def main():
     import torch
 
@@ -1612,6 +2046,33 @@ def main():
 
     log("phase 14: gradients through the kernels vs the plain path")
     phase_gradients()
+    torch.cuda.empty_cache()
+
+    log("phase 15: multiscale cascade [(128^2, 2048), (256^2, 4), "
+        "(1000^2, 4)]")
+    cascade = phase_cascade()
+
+    log("phase 16: trajectory golden 128^2 x 30 steps on the card")
+    golden = phase_golden()
+
+    log("phase 17: DEM examples (dem_process 1024^2, dem_condition 512^2, "
+        "dem_multiflow 1024^2 K=512) and the TIFF examples")
+    dem_ex = phase_dem_examples()
+
+    # Each kernel's launches on the paths of phases 15-17, each path's
+    # counts set to 0 just before it and read just after.
+    by_name = {e["name"]: e for e in entries}
+    for kind in ("fluvial", "debris"):
+        by_name[f"cohort_round[{kind}]"]["launches_by_path"] = {
+            "cascade": cascade["launches"][kind],
+            "golden 128x30": golden["launches"][kind]}
+    for kind in ("local", "trace"):
+        by_name[f"tile_{kind}"]["launches_by_path"] = {
+            name: dem_ex[name]["launches"][kind]
+            for name in ("dem_process", "dem_condition", "dem_multiflow")}
+        by_name[f"tile_{kind}"]["bitwise_at"] = sorted(dem_ex["ragged_tiles"])
+    by_name["transport_sweep[C=1]"]["launches_by_path"] = {
+        "dem_process": dem_ex["dem_process"]["launches"]["sweep"]}
 
     # The round bounds weigh exp, division and sqrt by the probe's costs.
     costs = probe["fp32"]["costs"]

@@ -37,7 +37,7 @@ import torch
 from soillib_tpu_torch.core.halo import NO_HALO
 from soillib_tpu_torch.models.params import ErosionParams
 from soillib_tpu_torch.ops.cohort import ENV_CLOSURE, NSTATE, _check_closure
-from soillib_tpu_torch.ops.noise import mul_u32
+from soillib_tpu_torch.ops.noise import _div, mul_u32
 from soillib_tpu_torch.ops.stencil import _shift
 from soillib_tpu_torch.ops.transport import (
     expected_exp_step,
@@ -223,7 +223,7 @@ def _node_masks(nnodes, speed, node_rule="face"):
                 torch.where(~xpos & ~ypos, 1.0, 0.0)]
     if node_rule != "face":
         raise NotImplementedError(
-            f"node_rule={node_rule!r} is not ported (ROADMAP queue A item 7)")
+            f"node_rule={node_rule!r} is not ported (ROADMAP queue A item 5)")
     isx = torch.abs(speed[0]) >= torch.abs(speed[1])
     if nnodes == 2:
         mx = torch.where(isx, 1.0, 0.0)
@@ -415,7 +415,7 @@ def transport_fluvial(
     if method == "particles":
         raise NotImplementedError(
             "transportMethod='particles' is not ported yet (ROADMAP queue "
-            "A item 10); use 'field' or 'field-static'"
+            "A item 6); use 'field' or 'field-static'"
         )
     if method not in ("field", "field-static"):
         raise ValueError(f"unknown transport method: {method!r}")
@@ -654,7 +654,7 @@ def transport_debris(
     if method == "particles":
         raise NotImplementedError(
             "transportMethod='particles' is not ported yet (ROADMAP queue "
-            "A item 10); use 'field'"
+            "A item 6); use 'field'"
         )
     # ("field-static" is a fluvial-only distinction; debris always runs
     # the cohort rheology.)
@@ -882,3 +882,43 @@ def _shift_self(h, dx, dy):
     y = torch.arange(H, device=h.device)[None, :] + dy
     oob = (x < 0) | (x >= W) | (y < 0) | (y >= H)
     return torch.where(oob, h, shifted)
+
+
+# ---------------------------------------------------------------------------
+# Albedo generators (in-sim visualization instrumentation), channel-first
+# (3, W, H) colors. The colors given as 3-sequences go to the device of the
+# fields.
+# ---------------------------------------------------------------------------
+
+
+def _color(c, like):
+    return torch.as_tensor(c, dtype=torch.float32,
+                           device=like.device)[:, None, None]
+
+
+def albedo_stratum(uplift, layers, scale, param, colorA, colorB, age, freq):
+    """Striped bedrock color from total uplift displacement.
+    Ref: erosion.cu:794-854."""
+    sz = float(scale[2])
+    shift = age * param.uplift * uplift
+    depth = torch.clamp(shift - layers[0] * sz, min=0.0)
+    even = torch.floor(_div(depth, freq)).to(torch.int32) % 2 == 0
+    return torch.where(even[None], _color(colorA, layers),
+                       _color(colorB, layers))
+
+
+def albedo_layer(albedo_bedrock, albedo_sediment, layers, scale_sediment,
+                 shift_sediment):
+    """Bedrock-sediment blend 1/(1 + scale*sed). Ref: erosion.cu:759-791."""
+    cS = torch.clamp(albedo_sediment + torch.as_tensor(
+        shift_sediment, dtype=torch.float32, device=layers.device), max=1.0)
+    blend = _sdiv(1.0, 1.0 + scale_sediment * layers[1])
+    return blend[None] * albedo_bedrock + (1.0 - blend[None]) * cS
+
+
+def albedo_discharge(albedo, discharge, color_discharge, extinction, scale):
+    """Extinction blend toward the water color. Ref: erosion.cu:857-919."""
+    value = torch.clamp(discharge, min=0.0)
+    blend = scale * (1.0 - torch.exp(-extinction * value))
+    return blend[None] * _color(color_discharge, discharge) \
+        + (1.0 - blend[None]) * albedo

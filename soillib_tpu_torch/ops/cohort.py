@@ -72,7 +72,7 @@ TOL_CHECK_ROUNDS = 16
 _NOT_PORTED = (
     "only CohortClosure's offsets, pooled offstep, gauss streams, no "
     "xmom/perstream, nodes 1/2/4 with node_rule='face' and any colors are "
-    "ported; the other closure variants are ROADMAP queue A item 7"
+    "ported; the other closure variants are ROADMAP queue A item 5"
 )
 
 

@@ -244,18 +244,67 @@ def operator_doubling(F, P, W, rounds):
     return F
 
 
-def _accumulate_doubling(graph, value, weight):
-    """Upstream accumulation by pointer doubling (module docstring)."""
+def compact_index(ids, queries, fallback, device=None):
+    """Map global ids -> compact positions without a grid-sized lookup
+    table: sort + searchsorted (ids are unique). Queries < 0 (or absent)
+    map to `fallback` per element. Returns int32."""
+    ids = as_field(ids, device, dtype=torch.int32)
+    queries = as_field(queries, ids.device, dtype=torch.int32).to(ids.device)
+    order = torch.argsort(ids)
+    sorted_ids = ids[order]
+    q = torch.where(queries >= 0, queries, 0)
+    pos = torch.clamp(torch.searchsorted(sorted_ids, q), 0, ids.shape[0] - 1)
+    hit = (queries >= 0) & (sorted_ids[pos] == q)
+    fallback = torch.as_tensor(fallback, dtype=torch.int32, device=ids.device)
+    return torch.where(hit, order[pos].to(torch.int32), fallback)
+
+
+def _doubling_pointers(graph):
+    """Flat receiver pointers with roots (receiver < 0 or itself) pointing
+    at themselves, the root mask, and ceil(log2 N) doubling rounds."""
     W, H = graph.shape
     N = W * H
     n = torch.arange(N, dtype=torch.int32, device=graph.device)
     g = graph.reshape(-1)
     root = (g < 0) | (g == n)
-    P = torch.where(root, n, g)
+    rounds = max(1, int(math.ceil(math.log2(max(N, 2)))))
+    return torch.where(root, n, g).long(), root, rounds
+
+
+def upstream_mask(graph, targets, device=None):
+    """Boolean mask of cells draining into any target cell (including the
+    targets). `targets` is a boolean (W, H) mask. Pointer-doubling descent
+    over ceil(log2 N) rounds (the legacy `soil.upstream` surface,
+    model.cpp:436-444)."""
+    g = as_field(graph, device, dtype=torch.int32)
+    P, _, rounds = _doubling_pointers(g)
+    hit = as_field(targets, g.device, dtype=torch.bool).to(g.device)
+    hit = hit.reshape(-1)
+    for _ in range(rounds):
+        hit = hit | hit[P]
+        P = P[P]
+    return hit.reshape(g.shape)
+
+
+def upstream_distance(graph, device=None):
+    """Hop distance along the receiver chain to the terminal root of each
+    cell (0 for roots), int32; pointer doubling over ceil(log2 N) rounds
+    (the legacy `soil.distance` surface, model.cpp:446-455)."""
+    g = as_field(graph, device, dtype=torch.int32)
+    P, root, rounds = _doubling_pointers(g)
+    D = torch.where(root, 0, 1).to(torch.int32)
+    for _ in range(rounds):
+        D = D + D[P]
+        P = P[P]
+    return D.reshape(g.shape)
+
+
+def _accumulate_doubling(graph, value, weight):
+    """Upstream accumulation by pointer doubling (module docstring)."""
+    P, root, rounds = _doubling_pointers(graph)
     Wt = torch.where(root, 0.0, weight.reshape(-1).to(torch.float32))
     A = value.reshape(-1).to(torch.float32)
-    rounds = max(1, int(math.ceil(math.log2(max(N, 2)))))
-    return operator_doubling(A, P, Wt, rounds).reshape(W, H)
+    return operator_doubling(A, P, Wt, rounds).reshape(graph.shape)
 
 
 def _auto_method(method, g):

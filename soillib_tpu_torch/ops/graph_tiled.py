@@ -41,6 +41,7 @@ package differentiates off the TPU.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -97,6 +98,15 @@ def _boundary_indices(W, H):
     by = (y % TILE == 0) | (y % TILE == TILE - 1) | (y == H - 1)
     mask = np.broadcast_to(bx | by, (W, H))
     return np.flatnonzero(mask.reshape(-1)).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _boundary_index_tensor(W, H, device):
+    """`_boundary_indices(W, H)` as an int64 tensor on `device`, built
+    once per (W, H, device): the counterpart of the JAX package's
+    trace-time constant. The cache holds at most 8 shapes and only the
+    device tensor; callers index with it and never write to it."""
+    return torch.as_tensor(_boundary_indices(W, H), device=device).long()
 
 
 def _boundary_rank(W, H, flat, fallback):
@@ -340,7 +350,7 @@ def _accumulate_tiled(slot, v, w, edge, max_iters, use_cuda):
     # ---- Phase 3: coarse boundary system (compact, pointer-doubled) ------
     from soillib_tpu_torch.ops.graph import operator_doubling
 
-    bidx = torch.as_tensor(_boundary_indices(W, H), device=v.device).long()
+    bidx = _boundary_index_tensor(W, H, v.device)
     K = bidx.shape[0]
 
     # Everything phase 3 needs lives on boundary cells: gather once at

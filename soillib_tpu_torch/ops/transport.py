@@ -271,7 +271,7 @@ def solve_uniform(
     elif method == "particles":
         raise NotImplementedError(
             "solve_uniform(method='particles') is not ported yet (ROADMAP "
-            "queue A item 10); use method='field'"
+            "queue A item 6); use method='field'"
         )
     else:
         raise ValueError(f"unknown method: {method!r}")

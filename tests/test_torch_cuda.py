@@ -741,3 +741,114 @@ def test_probe_kernel_matches_plain_on_card(op):
     assert fp32_chain.fp32_chain_launches[op] == n0 + 1
     want = fp32_chain.chain_plain(x, op, 4)
     _close(got, want, 1e-5, 0.0, op)
+
+
+# ---------------------------------------------------------------------------
+# Sizes that are not multiples of the tiles and blocks, and the multiscale
+# cascade's modules on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fluvial", "debris"])
+def test_cohort_kernel_bitwise_at_1000_on_card(kind):
+    """The cascade's finest level, 1000^2: partial owned tiles on both
+    axes. 16 rounds at the wrapper's split, state and deposits bitwise
+    equal to the plain rounds."""
+    st, aux = _on_card(*cohort_arrays(kind, True, 1000, 1000, seed=11))
+    tr = port_rules(kind, True, 1000, 1000)
+    st_k, g_k = cohort.cohort_advance_cuda(st, aux, tr, 16, LLEN)
+    st_p, g_p = cohort.cohort_advance_reference(st, aux, tr, 16, LLEN)
+    _equal(st_k, st_p, "state")
+    _equal(g_k, g_p, "deposits")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,H", [(1000, 1000), (1000, 744)])
+@pytest.mark.parametrize("d8", [0, 1])
+def test_tile_kernels_bitwise_at_ragged_sizes_on_card(W, H, d8):
+    """7 full tiles and one of 104 cells along x (and y at 1000^2; 5 and
+    104 at 744): the push and trace bitwise equal to the plain fixed
+    points, and the whole decayed accumulation equal to pointer doubling
+    at the tiled bar."""
+    _needs_card()
+    rng = np.random.default_rng(W + H + d8)
+    x = np.linspace(0, 6, W)[:, None]
+    y = np.linspace(0, 5, H)[None, :]
+    h = np.sin(x) * np.cos(y) + 0.3 * rng.normal(size=(W, H))
+    flow = graph.steepest(torch.from_numpy(h.astype(np.float32)).cuda(), d8)
+    src = torch.from_numpy(rng.uniform(0.5, 2.0, (W, H)).astype(
+        np.float32)).cuda()
+    w = torch.from_numpy(rng.uniform(0.8, 1.0, (W, H)).astype(
+        np.float32)).cuda()
+    _tile_pair(graph.graph_to_slots(flow, d8), d8, src, w, gt.TILE ** 2)
+    n0 = dict(gt.tile_launches)
+    got = soil.accumulate_decay(flow, src, w, d8)
+    assert gt.tile_launches == {"local": n0["local"] + 2,
+                                "trace": n0["trace"] + 1}
+    _close(got, soil.accumulate_decay(flow, src, w, d8, method="doubling"),
+           1e-5, 1e-5, "accumulate_decay vs doubling")
+
+
+@pytest.mark.cuda
+def test_boundary_set_is_built_once_per_shape_and_device_on_card():
+    _needs_card()
+    a = gt._boundary_index_tensor(1000, 744, torch.device("cuda", 0))
+    b = gt._boundary_index_tensor(1000, 744, torch.device("cuda", 0))
+    assert a is b and a.device.type == "cuda"
+    np.testing.assert_array_equal(a.cpu().numpy(),
+                                  gt._boundary_indices(1000, 744))
+
+
+@pytest.mark.cuda
+def test_resize_state_and_blur_on_card_equal_the_cpu():
+    _needs_card()
+    rng = np.random.default_rng(4)
+    h = rng.random((50, 38)).astype(np.float32)
+    st = soil.ErosionState.zeros((50, 38), height=h, device="cpu")
+    st = st.replace(momentum=torch.from_numpy(
+        rng.normal(size=(2, 50, 38)).astype(np.float32)))
+    for res in ((1000, 744), (17, 9)):
+        cpu = soil.resize_state(st, res)
+        card = soil.resize_state(
+            soil.ErosionState(**{k: v.cuda() for k, v in
+                                 vars(st).items()}), res)
+        for k, v in vars(cpu).items():
+            _close(getattr(card, k), v, 1e-6, 0.0, f"resize_state {k}")
+    for shape in ((300, 200), (64, 80, 3)):
+        a = rng.random(shape).astype(np.float32)
+        for sigma in (0.5, 12.0):
+            _close(soil.gaussian_blur(torch.from_numpy(a).cuda(), sigma),
+                   soil.gaussian_blur(a, sigma, device="cpu"), 1e-6, 0.0,
+                   f"blur {shape} sigma {sigma}")
+
+
+@pytest.mark.cuda
+def test_cascade_on_card_launches_the_cohort_kernel():
+    """16^2 for 2 steps, then 32^2 for 1 step, 4 transport rounds: the
+    cohort kernel launches at both levels, and the final state equals the
+    CPU cascade's at the multi-round cohort bar (rtol 2e-5, atol 1e-5 of
+    each field's scale)."""
+    _needs_card()
+    p = ErosionParams()
+    p.transportIterations = 4
+    h = soil.noise((16, 16), soil.noise_t(ext=(64.0, 64.0)),
+                   device="cpu") * 0.5 + 2.0
+    kw = dict(levels=[((16, 16), 2), ((32, 32), 1)],
+              world_extent=(20.0, 20.0), zscale=4.0, param=p)
+    before = dict(cohort.cohort_round_launches)
+    seen = []
+    card = soil.run_cascade(soil.ErosionState.zeros((16, 16), height=h),
+                            on_level=lambda i, res, s: seen.append(
+                                dict(cohort.cohort_round_launches)), **kw)
+    cpu = soil.run_cascade(
+        soil.ErosionState.zeros((16, 16), height=h, device="cpu"), **kw)
+    # Two solves a step, 4 rounds each at ROUNDS_PER_LAUNCH a launch.
+    per = 2 * len(cohort.launch_rounds(4, cohort.ROUNDS_PER_LAUNCH))
+    launched = [sum(s.values()) - sum(before.values()) for s in seen]
+    assert launched == [2 * per, 3 * per]
+    assert card.layers.device.type == "cuda"
+    for k, v in vars(cpu).items():
+        want = v.numpy()
+        _close(getattr(card, k), v, 2e-5,
+               1e-5 * float(np.abs(want).max()), f"cascade {k}")

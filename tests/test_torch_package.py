@@ -18,16 +18,36 @@ torch.set_num_threads(1)
 
 
 def test_import_pulls_in_no_jax():
+    """Importing the package and every one of its modules and examples
+    pulls in neither JAX nor the JAX package."""
     code = (
-        "import sys, soillib_tpu_torch, soillib_tpu_torch.convert\n"
+        "import importlib, pkgutil, sys, soillib_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    soillib_tpu_torch.__path__, 'soillib_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'soillib_tpu_torch.examples.multiscale' in names\n"
+        "assert 'soillib_tpu_torch.io.mesh' in names\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'soillib_tpu' or m.startswith('soillib_tpu.')]\n"
-        "print(bad)\n"
+        "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_public_surface_matches_the_jax_package_but_the_queued_names():
+    """Every name of the JAX package's `__all__` is exported by the port,
+    except the ones still queued (ROADMAP queue A items 7 and 9)."""
+    import soillib_tpu
+
+    missing = set(soillib_tpu.__all__) - set(soil.__all__)
+    assert missing == {"yield_t", "make_yield", "prefetch", "silt",
+                       "parallel"}
+    for name in soil.__all__:
+        assert hasattr(soil, name), name
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():
