@@ -26,7 +26,12 @@ tests/test_golden.py on the card, and the DEM and TIFF examples
 members; the kernel calls of dem_process and of one dem_multiflow batch
 held bitwise against plain, and the tile kernels at 1000^2 and 1000 x
 744; tiff_merge, tiff_mesh and tiff_view on two 1024^2 tiles the phase
-writes). Each path's kernel launches
+writes), and every closure variant of the cohort kernel (the legacy
+split, offstep off and per stream, uniform streams with xmom and
+perstream; sign, cluster and speed node routing: each variant's library
+built at its first use, its kernels held against the plain round at
+512^2, its fluvial gradient against the plain path's, and two 4096^2
+coupled steps with the closure). Each path's kernel launches
 are counted from zero just before it runs and read just after; one more
 step of each erosion path, and one accumulate, is profiled by kernel.
 Every phase raises on failure. The last three lines of standard output are a JSON object
@@ -111,36 +116,24 @@ def terrain(n, seed):
 
 
 def cohort_problem(kind, albedo, n, seed, device):
-    """Seeded cohort state/aux (the JAX kernel tests' recipe) and the real
-    rule set of `kind`."""
+    """Seeded cohort state/aux (the JAX kernel tests' recipe,
+    soillib_tpu_torch.testing `cohort_arrays`) and the real rule set of
+    `kind`."""
     import torch
 
     from soillib_tpu_torch.models import erosion
     from soillib_tpu_torch.models.params import ErosionParams
+    from soillib_tpu_torch.testing import cohort_arrays
 
-    rng = np.random.default_rng(seed)
-    C = (7 if albedo else 4) if kind == "fluvial" else (6 if albedo else 3)
-    w0 = np.abs(rng.normal(size=(n, n))) + 0.5
-    sp = rng.normal(size=(2, n, n)) * 3.0
-    carried = np.abs(rng.normal(size=(C, n, n)))
-    accel = rng.normal(size=(2, n, n))
-    if kind == "fluvial":
-        aux3 = -np.abs(rng.normal(size=(n, n)))   # momentum-decay rate
-    else:
-        aux3 = 0.5 * rng.normal(size=(n, n))      # excess slope
-    st = np.concatenate([np.stack([
-        w0, w0 * sp[0], w0 * sp[1], w0 * sp[0] ** 2, w0 * sp[1] ** 2,
-        w0 * sp[0] * sp[1], w0 * 0.5, w0 * 0.5, w0 / 3.0, w0 / 3.0]),
-        carried])
-    aux = np.concatenate([accel, np.ones((1, n, n)), aux3[None]])
+    st, aux = cohort_arrays(kind, albedo, n, n, seed)
     p = ErosionParams()
     Llen = math.sqrt(0.02)
     if kind == "fluvial":
         rules = erosion.make_fluvial_rules(p, Llen, albedo)
     else:
         rules = erosion.make_debris_rules(p, Llen, p.nSamples / n / n, albedo)
-    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
-    return t(st), t(aux), rules, Llen
+    return (torch.from_numpy(st).to(device), torch.from_numpy(aux).to(device),
+            rules, Llen)
 
 
 def check_close(name, got, want, rtol, atol):
@@ -262,24 +255,30 @@ def capture_solves(sim):
     return captured
 
 
-def ptxas_usage(kernel, kind, albedo, nodes=1):
-    """(registers, static shared bytes) that ptxas reported for one
-    instantiation of a cohort kernel, from the build log; None if the log
-    does not name it."""
+def ptxas_usage(kernel, kind, albedo, nodes=1, defines=()):
+    """(registers, static shared bytes, spill store bytes, spill load
+    bytes) that ptxas reported for one instantiation of a cohort kernel,
+    from the build log of the library built with `defines`; None if the
+    log does not name it."""
     import re
 
     from soillib_tpu_torch import _native
 
     tmpl = f"ILi{0 if kind == 'fluvial' else 1}ELb{int(albedo)}E" + (
         f"Li{nodes}E" if nodes > 1 else "")
-    lines = _native.build_log("cohort_round").splitlines()
+    lines = _native.build_log("cohort_round", defines).splitlines()
     for i, line in enumerate(lines):
         if f"{kernel}{tmpl}" in line and "Compiling entry" in line:
+            spills = (0, 0)
             for used in lines[i + 1:i + 4]:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", used)
+                if m:
+                    spills = (int(m[1]), int(m[2]))
                 m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?",
                               used)
                 if m:
-                    return int(m[1]), int(m[2] or 0)
+                    return int(m[1]), int(m[2] or 0), *spills
     return None
 
 
@@ -315,65 +314,118 @@ def set_round_bound(entry, ops_per_cell, bytes_per_cell_pass):
 
 def cohort_bound(entry, costs):
     """`set_round_bound` of a cohort entry: the reference round's
-    operations (bench.round_ops, weighted by the probe's costs) times the
-    nodes; 4 x ((S + 4 + C) + (S + C)) bytes per pass."""
+    operations under the entry's closure (bench.closure_round_ops, counted
+    from the JAX round, weighted by the probe's costs);
+    4 x ((S + 4 + C) + (S + C)) bytes per pass."""
     from soillib_tpu_torch import bench
 
-    S, C, nodes = entry["shape"][0], entry["carried"], entry["nodes"]
-    ops = bench.round_ops(costs, entry["albedo"])[entry["kind"]] * nodes
+    S, C = entry["shape"][0], entry["carried"]
+    ops = bench.closure_round_ops(costs, entry["kind"], entry["albedo"],
+                                  entry["nodes"], entry["variant"])
     set_round_bound(entry, ops, 4 * ((S + 4 + C) + (S + C)))
 
 
-def kernel_entry(kind, captured, launches):
-    """One kernel's line of the report at the main path's inputs: the
-    kernel against the plain round on them, bitwise (1 round: state and
-    deposits; 16 rounds through the wrapper's split: state and deposits),
-    then both timed, the kernel per round over launches of
-    ROUNDS_PER_LAUNCH rounds. The bound is set once the probe's costs
-    exist (`cohort_bound`)."""
+def round_checks(what, st, aux, rules, Llen, closure=None, rounds=16):
+    """The cohort kernel built for `closure` against the plain round on
+    (st, aux): one round, state and deposits bitwise; `rounds` rounds
+    through the wrapper's split, state and deposits bitwise for one node,
+    deposits at rtol 2e-5 / atol 1e-5 for N nodes (the JAX kernel tests'
+    multi-round bar). Returns the max abs errors of 1 and of `rounds`
+    rounds."""
+    import torch
+
+    from soillib_tpu_torch.ops import cohort
+
+    nodes = closure.nodes if closure is not None else 1
+    C = cohort.n_deposits(st.shape[0], closure)
+    G = torch.zeros((C,) + tuple(st.shape[1:]), device=st.device)
+    st_k = cohort.cohort_round_cuda(st, aux, G, rules, Llen, nodes=nodes,
+                                    closure=closure)
+    st_p, G_p = cohort.cohort_round(st, torch.zeros_like(G), aux, rules,
+                                    Llen, closure)
+    err = max(bitwise_err(f"{what}, 1-round state", st_k, st_p),
+              bitwise_err(f"{what}, 1-round deposits", G, G_p))
+    del st_k, st_p, G_p, G
+    st_k, g_k = cohort.cohort_advance_cuda(st, aux, rules, rounds, Llen,
+                                           closure=closure)
+    st_p, g_p = cohort.cohort_advance_reference(st, aux, rules, rounds, Llen,
+                                                closure=closure)
+    if nodes == 1:
+        return err, max(
+            bitwise_err(f"{what}, {rounds}-round state", st_k, st_p),
+            bitwise_err(f"{what}, {rounds}-round deposits", g_k, g_p))
+    return err, check_close(f"{what}, {rounds}-round deposits", g_k, g_p,
+                            2e-5, 1e-5)
+
+
+def kernel_entry(kind, captured, launches, closure=None, crop=2048):
+    """One cohort kernel's line of the report at a path's inputs
+    (captured[kind]), for the library built for `closure` (None: the
+    default closure's): the kernel against the plain round
+    (`round_checks`), then both timed, the kernel per round over launches
+    of ROUNDS_PER_LAUNCH rounds (N nodes: one round a launch). One node
+    is checked on the path's inputs; N nodes on a crop^2 corner of them,
+    where the plain round's temporaries (about 15 times the state) fit
+    beside the path's buffers, and the plain round is timed there. The
+    bound is set once the probe's costs exist (`cohort_bound`)."""
     import torch
 
     from soillib_tpu_torch.ops import cohort
 
     st, aux, rules, Llen = captured[kind]
+    nodes = closure.nodes if closure is not None else 1
+    v = cohort.kernel_variant(closure, nodes)
+    key = cohort.launch_key(kind, nodes, v.tag)
     S, W, H = st.shape
-    C = S - cohort.NSTATE
-    K = cohort.ROUNDS_PER_LAUNCH
+    C = cohort.n_deposits(S, closure)
+    K = cohort.ROUNDS_PER_LAUNCH if nodes == 1 else 1
     saved = dict(cohort.cohort_round_launches), dict(cohort.cohort_rounds)
+    sc, ac = st, aux
+    if nodes > 1:
+        sc = st[:, :crop, :crop].contiguous()
+        ac = aux[:, :crop, :crop].contiguous()
+    what = f"{key} {'x'.join(map(str, sc.shape))} " + (
+        "main-path inputs" if nodes == 1 else "crop of the path's inputs")
+    err, err16 = round_checks(what, sc, ac, rules, Llen, closure)
+    log(f"  {what}: 1 round and 16 rounds ({K} a launch) "
+        f"{'bitwise equal' if nodes == 1 else 'bitwise / within rtol 2e-5'}"
+        f" (max abs err {err16:.3e})")
     G = torch.zeros((C, W, H), device="cuda")
-    st_k = cohort.cohort_round_cuda(st, aux, G, rules, Llen)
-    st_p, G_p = cohort.cohort_round(st, torch.zeros_like(G), aux, rules,
-                                    Llen)
-    what = f"{kind} {S}x{W}x{H} main-path inputs"
-    err = max(bitwise_err(f"{what}, 1-round state", st_k, st_p),
-              bitwise_err(f"{what}, 1-round deposits", G, G_p))
-    del st_k, st_p, G_p
-    st_k, g_k = cohort.cohort_advance_cuda(st, aux, rules, 16, Llen)
-    st_p, g_p = cohort.cohort_advance_reference(st, aux, rules, 16, Llen)
-    err16 = max(bitwise_err(f"{what}, 16-round state", st_k, st_p),
-                bitwise_err(f"{what}, 16-round deposits", g_k, g_p))
-    del st_k, g_k, st_p, g_p
-    log(f"  {kind:7s} {S}x{W}x{H}: 1 round and 16 rounds ({K} a launch) "
-        f"bitwise equal to the plain rounds")
-    G.zero_()
     out = torch.empty_like(st)
-    ms = cuda_ms(lambda: cohort.cohort_rounds_cuda(st, aux, G, rules, Llen,
-                                                   K, out=out), 20) / K
-    ms_1 = cuda_ms(lambda: cohort.cohort_rounds_cuda(st, aux, G, rules, Llen,
-                                                     1, out=out), 20)
-    plain_ms = cuda_ms(lambda: cohort.cohort_round(st, G, aux, rules, Llen),
-                       3)
+
+    def launch(x, a, g, k):
+        return cohort.cohort_rounds_cuda(x, a, g, rules, Llen, k, out=out,
+                                         nodes=nodes, closure=closure)
+
+    ms = cuda_ms(lambda: launch(st, aux, G, K), 20) / K
+    extra = {}
+    if nodes == 1:
+        extra["ms_per_round_at_1_round_a_launch"] = cuda_ms(
+            lambda: launch(st, aux, G, 1), 20)
+    del G, out
+    Gc = torch.zeros((C,) + tuple(sc.shape[1:]), device="cuda")
+    if nodes > 1:
+        out = torch.empty_like(sc)
+        extra["ms_at_plain_shape"] = cuda_ms(lambda: launch(sc, ac, Gc, 1),
+                                             10)
+        del out
+    plain_ms = cuda_ms(lambda: cohort.cohort_round(sc, Gc, ac, rules, Llen,
+                                                   closure), 3)
     # Launches made to compare and time the kernel do not count.
-    cohort.cohort_round_launches.update(saved[0])
-    cohort.cohort_rounds.update(saved[1])
-    geo = cohort.kernel_geometry(C, 1, W, H, K)
-    usage = ptxas_usage("cohort_rounds_kernel", kind, rules.albedo_on)
+    for counts, before in zip((cohort.cohort_round_launches,
+                               cohort.cohort_rounds), saved):
+        counts.clear()
+        counts.update(before)
+    geo = cohort.kernel_geometry(C, nodes, W, H, K, v.rule)
+    usage = ptxas_usage("cohort_rounds_kernel" if nodes == 1
+                        else "cohort_round_nodes_kernel", kind,
+                        rules.albedo_on, nodes, v.defines())
     return {
-        "name": f"cohort_round[{kind}]",
+        "name": f"cohort_round[{key}]",
         "route": "cuda",
         "source": "soillib_tpu_torch/csrc/cohort_round.cu",
         "replaces": "soillib_tpu/ops/cohort.py:1480",
-        "launches": launches[kind],
+        "launches": launches[key],
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -383,15 +435,21 @@ def kernel_entry(kind, captured, launches):
         "shape": [S, W, H],
         "kind": kind,
         "albedo": bool(rules.albedo_on),
-        "nodes": 1,
+        "nodes": nodes,
+        "variant": v.tag,
+        "variant_defines": list(v.defines()),
         "carried": C,
+        "plain_shape": list(sc.shape),
         "max_abs_err_16_rounds": err16,
         "rounds_per_launch": K,
-        "ms_per_round_at_1_round_a_launch": ms_1,
+        **extra,
         "tile": {"block": list(geo.block), "ring": geo.ring,
-                 "owned": [geo.block[1] - 2 * geo.ring,
+                 "cluster": geo.cluster,
+                 "owned": [geo.cluster * geo.block[1] - 2 * geo.ring,
                            geo.block[0] - 2 * geo.ring]},
         "registers": usage and usage[0],
+        "spill_store_bytes": usage and usage[2],
+        "spill_load_bytes": usage and usage[3],
         "shared_bytes_per_block": geo.smem + (usage[1] if usage else 0),
         "bytes_per_cell_round": design_bytes_per_cell_round(geo, S, C),
     }
@@ -1455,93 +1513,6 @@ def phase_quality(n=4096, steps=2, iters=32):
     return sim, times, launches, chunks, cap.captured
 
 
-def nodes_entry(captured, launches, crop=2048, rounds=16):
-    """The NODES=4 kernel's line of the report. Timed at the path's own
-    n^2 inputs (one color group, 68 channels); held against the plain
-    nodes round on a crop^2 corner of them (1 round: state and deposits
-    bitwise; `rounds` rounds: deposits, rtol 2e-5 / atol 1e-5), where the
-    plain round's temporaries (about 15 times the state) fit beside the
-    path's buffers. The bound is set once the probe's costs exist."""
-    import torch
-
-    import soillib_tpu_torch as soil
-    from soillib_tpu_torch.ops import cohort
-
-    st, aux, rules, Llen = captured
-    cl = soil.CohortClosure(nodes=4)
-    S, W, H = st.shape
-    C = cohort.n_deposits(S, cl)
-    saved = dict(cohort.cohort_round_launches), dict(cohort.cohort_rounds)
-    G = torch.zeros((C, W, H), device="cuda")
-    out = torch.empty_like(st)
-    ms = cuda_ms(lambda: cohort.cohort_round_cuda(st, aux, G, rules, Llen,
-                                                  out=out, nodes=4), 10)
-    del G, out
-    sc = st[:, :crop, :crop].contiguous()
-    ac = aux[:, :crop, :crop].contiguous()
-    Gc = torch.zeros((C, crop, crop), device="cuda")
-    st_k = cohort.cohort_round_cuda(sc, ac, Gc, rules, Llen, nodes=4)
-    st_p, G_p = cohort.cohort_round(sc, torch.zeros_like(Gc), ac, rules,
-                                    Llen, cl)
-    what = f"fluvial nodes=4 {S}x{crop}x{crop} crop of the path's inputs"
-    err = max(bitwise_err(f"{what}, 1-round state", st_k, st_p),
-              bitwise_err(f"{what}, 1-round deposits", Gc, G_p))
-    del st_k, st_p, G_p
-    _, g_k = cohort.cohort_advance_cuda(sc, ac, rules, rounds, Llen,
-                                        closure=cl)
-    _, g_p = cohort.cohort_advance_reference(sc, ac, rules, rounds, Llen,
-                                             closure=cl)
-    err16 = check_close(f"{what}, {rounds}-round deposits", g_k, g_p, 2e-5,
-                        1e-5)
-    bitwise16 = torch.equal(g_k, g_p)
-    del g_k, g_p
-    Gc.zero_()
-    crop_ms = cuda_ms(lambda: cohort.cohort_round_cuda(sc, ac, Gc, rules,
-                                                       Llen, nodes=4), 10)
-    plain_ms = cuda_ms(lambda: cohort.cohort_round(sc, Gc, ac, rules, Llen,
-                                                   cl), 3)
-    cohort.cohort_round_launches.update(saved[0])
-    cohort.cohort_rounds.update(saved[1])
-    geo = cohort.kernel_geometry(C, 4, W, H)
-    usage = ptxas_usage("cohort_round_nodes_kernel", "fluvial",
-                        rules.albedo_on, 4)
-    log(f"  {what}: 1 round bitwise equal; {rounds} rounds deposits "
-        f"{'bitwise equal' if bitwise16 else 'within rtol 2e-5'} (max abs "
-        f"err {err16:.3e}); kernel {ms:.3f} ms/launch at {W}x{H} "
-        f"({crop_ms:.3f} at the crop), plain round at the crop "
-        f"{plain_ms:.2f} ms")
-    return {
-        "name": "cohort_round[fluvial,nodes=4]",
-        "route": "cuda",
-        "source": "soillib_tpu_torch/csrc/cohort_round.cu",
-        "replaces": "soillib_tpu/ops/cohort.py:1480",
-        "launches": launches["fluvial,nodes=4"],
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": None,
-        "bound_by": None,
-        "library_ms": None,
-        "shape": [S, W, H],
-        "kind": "fluvial",
-        "albedo": bool(rules.albedo_on),
-        "nodes": 4,
-        "carried": C,
-        "plain_shape": [S, crop, crop],
-        "ms_at_plain_shape": crop_ms,
-        "bitwise_1_round": True,
-        "max_abs_err_16_rounds": err16,
-        "rounds_per_launch": 1,
-        "tile": {"block": list(geo.block), "ring": geo.ring,
-                 "cluster": geo.cluster,
-                 "owned": [geo.cluster * geo.block[1] - 2,
-                           geo.block[0] - 2]},
-        "registers": usage and usage[0],
-        "shared_bytes_per_block": geo.smem + (usage[1] if usage else 0),
-        "bytes_per_cell_round": design_bytes_per_cell_round(geo, S, C),
-    }
-
-
 # ---------------------------------------------------------------------------
 # The multiscale cascade, the trajectory golden and the DEM and TIFF
 # examples
@@ -1933,6 +1904,175 @@ def phase_dem_examples():
     return out
 
 
+# ---------------------------------------------------------------------------
+# The closure variants of the cohort kernel
+# ---------------------------------------------------------------------------
+
+def variant_solves(cl, changed=False):
+    """{kind: closure} of the cohort solves of an erode step with closure
+    `cl`: the fluvial solve with `cl`, the debris solve with `cl` less its
+    nodes and colors (`_debris_closure`). With `changed`, only those whose
+    kernel build `cl` changes (the node rules reach the fluvial solve
+    only)."""
+    import dataclasses
+
+    from soillib_tpu_torch.ops import cohort
+
+    out = {"fluvial": cl,
+           "debris": dataclasses.replace(cl, nodes=1, colors=1)}
+    return {kind: c for kind, c in out.items()
+            if not changed or cohort.kernel_variant(c, c.nodes).defines()}
+
+
+def variant_grad(cl, n=128, iters=4):
+    """A check that the closure reaches the backward: `iters` fluvial
+    rounds through run_cohort on the card (DiffableCohort: the variant's
+    kernel forward, launches counted; the plain rounds backward) on
+    tests/test_grad_closures.py's band problem at n^2 (soillib_tpu_torch
+    .testing `band_problem`), against the plain rounds' own autograd on
+    the card. The forward deposits are held to the kernel's gates
+    (bitwise for one node, rtol 2e-5 / atol 1e-5 for N nodes); the
+    gradient of sum(G^2) w.r.t. the velocity field at rtol 1e-5 with an
+    absolute floor of 1e-5 of its scale (phase 14's bar): both sides run
+    the same plain backward, so this holds the wiring, not the kernel.
+    Returns the max abs errors of the deposits and of the gradient."""
+    import torch
+
+    from soillib_tpu_torch.models.erosion import make_fluvial_rules
+    from soillib_tpu_torch.models.params import ErosionParams
+    from soillib_tpu_torch.ops import cohort
+    from soillib_tpu_torch.testing import band_problem
+
+    rules = make_fluvial_rules(ErosionParams(), 0.1)
+
+    def grad(solve):
+        v = (0.4 * torch.ones((n, n), device="cuda")).requires_grad_(True)
+        st, aux = band_problem(cl, v)
+        G = solve(st, aux)
+        return G.detach(), torch.autograd.grad((G * G).sum(), v)[0]
+
+    key = cohort.launch_key("fluvial", cl.nodes,
+                            cohort.kernel_variant(cl, cl.nodes).tag)
+    n0 = cohort.cohort_round_launches.get(key, 0)
+    G, got = grad(lambda st, aux: cohort.run_cohort(st, aux, rules, iters,
+                                                    0.1, cl))
+    if cohort.cohort_round_launches.get(key, 0) == n0:
+        raise AssertionError(f"{key} gradient: no kernel launch")
+    G_p, want = grad(lambda st, aux: cohort.cohort_advance_reference(
+        st, aux, rules, iters, 0.1, closure=cl)[1])
+    if float(want.abs().max()) <= 0.0:
+        raise AssertionError(f"{key} gradient: zero on the plain path")
+    if cl.nodes == 1:
+        g_err = bitwise_err(f"{key} forward deposits", G, G_p)
+    else:
+        g_err = check_close(f"{key} forward deposits", G, G_p, 2e-5, 1e-5)
+    return g_err, check_close(f"{key} gradient", got, want, 1e-5,
+                              1e-5 * float(want.abs().max()))
+
+
+def variant_erode(cl, n=4096, steps=2, iters=32):
+    """ErosionSim at n^2 with closure `cl`, `steps` steps of `iters` rounds,
+    albedo on; checks the state finite and every solve's rounds under its
+    variant's launch key. Returns the step times, the launches and the
+    first step's solve inputs by rule kind."""
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.ops import cohort
+
+    p = soil.ErosionParams()
+    p.transportIterations = iters
+    p.trackAlbedo = True
+    p.closure = cl
+    state = soil.ErosionState.zeros((n, n), height=terrain(n, 7))
+    sim = soil.ErosionSim((n, n), (0.1, 0.1, 4.0), p, state=state)
+    captured = {}
+    run = cohort.run_cohort
+
+    def spy(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
+        if rules.kind not in captured:
+            captured[rules.kind] = (cohort.as_stack(st0).clone(),
+                                    cohort.as_stack(aux).clone(), rules,
+                                    Llen)
+        return run(st0, aux, rules, iters, Llen, closure, tol)
+
+    zero_counts(cohort.cohort_round_launches, cohort.cohort_rounds)
+    times = []
+    cohort.run_cohort = spy
+    try:
+        for _ in range(steps):
+            times.append(timed(sim.step)[1])
+    finally:
+        cohort.run_cohort = run
+    launches = nonzero(cohort.cohort_round_launches)
+    rounds = nonzero(cohort.cohort_rounds)
+    finite_state(sim.state, f"{n}^2 erode with {cl}")
+    want = {cohort.launch_key(kind, c.nodes,
+                              cohort.kernel_variant(c, c.nodes).tag):
+            steps * iters for kind, c in variant_solves(cl).items()}
+    if rounds != want:
+        raise AssertionError(f"{cl}: rounds {rounds} in launches "
+                             f"{launches}, expected {want}")
+    return times, launches, captured
+
+
+def phase_variants():
+    """Every closure variant (soillib_tpu_torch.testing VARIANTS): its
+    kernel libraries built together (one nvcc each), its kernels held
+    against the plain round on seeded 512^2 inputs (fluvial and debris
+    where the closure reaches them, `round_checks`), the closure carried
+    through the backward at 128^2 (`variant_grad`), then two 4096^2
+    coupled steps with the closure (32 rounds, albedo on), and each of its
+    kernels checked and timed on the first step's inputs (`kernel_entry`).
+    Returns the kernel entries (bounds set later by `cohort_bound`)."""
+    import torch
+
+    from soillib_tpu_torch import _native
+    from soillib_tpu_torch.ops import cohort
+    from soillib_tpu_torch.testing import CLOSURES, VARIANTS, split_nodes
+
+    solves = {name: variant_solves(CLOSURES[name], changed=True)
+              for name in VARIANTS}
+    defines = sorted({cohort.kernel_variant(c, c.nodes).defines()
+                      for s in solves.values() for c in s.values()})
+    t0 = time.perf_counter()
+    _native.build_variants("cohort_round", defines)
+    log(f"  built {len(defines)} variant libraries of cohort_round in "
+        f"parallel in {time.perf_counter() - t0:.1f} s")
+    entries = []
+    for name in VARIANTS:
+        cl = CLOSURES[name]
+        errs = {}
+        for kind, c in solves[name].items():
+            st, aux, rules, Llen = cohort_problem(kind, True, 512, 1, "cuda")
+            errs[kind] = round_checks(f"{name} {kind} 512^2 seeded",
+                                      split_nodes(st, c), aux, rules, Llen,
+                                      c)
+        g_err, grad_err = variant_grad(cl)
+        times, launches, captured = variant_erode(cl)
+        log(f"  {name}: 512^2 kernel vs plain {errs} (max abs err, 1 and "
+            f"16 rounds); 128^2 through run_cohort: deposits {g_err:.3e}, "
+            f"gradient {grad_err:.3e}; 4096^2 step ms "
+            f"{[round(t, 1) for t in times]}; launches {launches}")
+        for kind, c in solves[name].items():
+            e = kernel_entry(kind, captured, launches, c)
+            e.update(closure=name, step_ms=times[-1],
+                     max_abs_err_512=errs[kind][0],
+                     max_abs_err_16_rounds_512=errs[kind][1])
+            if kind == "fluvial":
+                e.update(max_abs_err_run_cohort_128=g_err,
+                         max_abs_err_gradient_128=grad_err)
+            log(f"  {e['name']}: {e['ms']:.3f} ms/round at "
+                f"{e['rounds_per_launch']} a launch, plain "
+                f"{e['plain_ms']:.2f} ms at {e['plain_shape']}; "
+                f"{e['registers']} registers, spills "
+                f"{e['spill_store_bytes']}/{e['spill_load_bytes']} B "
+                f"(stores/loads), {e['shared_bytes_per_block']} B shared a "
+                f"block; {e['launches']} launches in the 2 steps")
+            entries.append(e)
+        del captured
+        torch.cuda.empty_cache()
+    return entries
+
+
 def main():
     import torch
 
@@ -2041,7 +2181,8 @@ def main():
                             ("cohort_kernel_ms", "cohort_rounds_kernel")))
     del q_sim
     torch.cuda.empty_cache()
-    entries.append(nodes_entry(q_captured, q_launches))
+    entries.append(kernel_entry("fluvial", {"fluvial": q_captured},
+                                q_launches, cohort.CohortClosure(nodes=4)))
     del q_captured
 
     log("phase 14: gradients through the kernels vs the plain path")
@@ -2073,6 +2214,12 @@ def main():
         by_name[f"tile_{kind}"]["bitwise_at"] = sorted(dem_ex["ragged_tiles"])
     by_name["transport_sweep[C=1]"]["launches_by_path"] = {
         "dem_process": dem_ex["dem_process"]["launches"]["sweep"]}
+
+    log("phase 18: closure variants of the cohort kernel")
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    entries += phase_variants()
+    log(f"  phase 18 took {time.perf_counter() - t18:.1f} s")
 
     # The round bounds weigh exp, division and sqrt by the probe's costs.
     costs = probe["fp32"]["costs"]

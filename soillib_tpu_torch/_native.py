@@ -3,10 +3,14 @@
 Each source is compiled into a shared library with a plain C interface
 under `_build/` (listed in .gitignore) and loaded with ctypes. The first
 use of any kernel builds every source that has no library yet, one nvcc
-process each, all started together. The library's file name carries a
-hash of the source and the flags, so an edited source is rebuilt rather
-than a stale library reused. Nothing is built or loaded when the module
-is imported.
+process each, all started together. A source may also be built with
+-D defines into a library of its own (a variant: the cohort kernel's
+closure variants), at its first use or several at once (`build_variants`).
+The library's file name carries a hash of the source, the flags and the
+defines, so an edited source is rebuilt rather than a stale library
+reused. Each library is compiled to a temporary file and moved into place
+(`os.replace`), so a process never loads a half-written one. Nothing is
+built or loaded when the module is imported.
 """
 
 from __future__ import annotations
@@ -55,67 +59,95 @@ def nvcc_path() -> str:
                        "toolkit (set CUDA_HOME)")
 
 
-def _target(name: str) -> str:
+def _target(name: str, defines=()) -> str:
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + repr(NVCC_FLAGS).encode())
-    return os.path.join(BUILD, f"lib{name}-{digest.hexdigest()[:16]}.so")
+        data = f.read() + repr(NVCC_FLAGS).encode()
+    if defines:
+        data += repr(tuple(defines)).encode()
+    digest = hashlib.sha256(data).hexdigest()[:16]
+    return os.path.join(BUILD, f"lib{name}-{digest}.so")
 
 
-def build() -> dict:
-    """Compile every csrc/*.cu into a shared library, one nvcc process per
-    source, all at once; returns {name: library path}. Libraries already
-    built from the same source and flags are kept. Each compiler's output
-    (registers and shared memory) is written next to its library as
-    `.log`. Raises, naming every source that failed, after all have
+def _compile(jobs) -> None:
+    """Run one nvcc per (name, defines, library path) of `jobs`, all at
+    once; each writes a temporary file that is moved into place when it
+    succeeds, and its compiler output (registers, shared memory, spills)
+    to `<path>.log`. Raises, naming every job that failed, after all have
     finished."""
     os.makedirs(BUILD, exist_ok=True)
-    paths = {name: _target(name) for name in sources()}
-    running = {}
+    running = []
+    failed = []
     try:
-        for name, path in paths.items():
-            if os.path.exists(path):
-                continue
+        for name, defines, path in jobs:
             tmp = f"{path}.{os.getpid()}.tmp"
             with open(f"{path}.log", "w") as log:
                 proc = subprocess.Popen(
-                    [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                    [nvcc_path(), *NVCC_FLAGS, *defines, "-o", tmp,
                      os.path.join(CSRC, f"{name}.cu")],
                     stdout=log, stderr=subprocess.STDOUT)
-            running[name] = (proc, tmp, path)
-        failed = []
-        for name, (proc, tmp, path) in running.items():
+            running.append((name, defines, proc, tmp, path))
+        for name, defines, proc, tmp, path in running:
             rc = proc.wait()
             if rc != 0:
-                failed.append(f"{name} (nvcc exit {rc}, see {path}.log)")
+                what = f"{name} {' '.join(defines)}".strip()
+                failed.append(f"{what} (nvcc exit {rc}, see {path}.log)")
             else:
                 os.replace(tmp, path)
     finally:
-        for proc, _, _ in running.values():
+        for _, _, proc, _, _ in running:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
     if failed:
         raise RuntimeError("kernel build failed: " + "; ".join(failed))
+
+
+def build() -> dict:
+    """Compile every csrc/*.cu into a shared library, one nvcc process per
+    source, all at once; returns {name: library path}. Libraries already
+    built from the same source and flags are kept."""
+    paths = {name: _target(name) for name in sources()}
+    _compile([(name, (), path) for name, path in paths.items()
+              if not os.path.exists(path)])
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The shared library built from csrc/<name>.cu, loaded once per
-    process. If it is not built yet, every source without a library is
-    built first, in parallel."""
+def build_variants(name: str, variants) -> list:
+    """Compile csrc/<name>.cu once per tuple of -D defines in `variants`,
+    all at once; returns the library paths in that order. Libraries
+    already built are kept."""
+    paths = [_target(name, tuple(d)) for d in variants]
+    todo = {}
+    for d, path in zip(variants, paths):
+        if not os.path.exists(path):
+            todo[path] = (name, tuple(d), path)
+    _compile(list(todo.values()))
+    return paths
+
+
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The shared library built from csrc/<name>.cu (with the -D
+    `defines`, if any), loaded once per process. If the plain library is
+    not built yet, every source without a library is built first, in
+    parallel; a variant is built alone."""
+    defines = tuple(defines)
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get((name, defines))
         if lib is None:
-            path = _target(name)
+            path = _target(name, defines)
             if not os.path.exists(path):
-                build()
-            lib = _libs[name] = ctypes.CDLL(path)
+                if defines:
+                    build_variants(name, [defines])
+                else:
+                    build()
+            lib = _libs[(name, defines)] = ctypes.CDLL(path)
         return lib
 
 
-def build_log(name: str) -> str:
-    """The compiler's output for csrc/<name>.cu, or '' if none was kept."""
-    path = _target(name) + ".log"
+def build_log(name: str, defines=()) -> str:
+    """The compiler's output for csrc/<name>.cu (with the -D `defines`),
+    or '' if none was kept."""
+    path = _target(name, tuple(defines)) + ".log"
     if not os.path.exists(path):
         return ""
     with open(path) as f:

@@ -60,6 +60,30 @@ ROUND_OPS = {
 }
 WEIGHT_CLASSES = ("simple", "exp", "div", "sqrt")
 
+# The same count of the reference round under each closure that runs
+# another build of the cohort kernel, per (rule set, albedo, nodes,
+# kernel variant tag): ops/cohort.py `kernel_variant(closure, nodes).tag`.
+# The node rules reach the fluvial solve only (the debris solve drops the
+# nodes); a count covers every node of a cell. tests/test_torch_bench.py
+# recomputes them from the JAX jaxpr.
+VARIANT_ROUND_OPS = {
+    ("fluvial", True, 1, "legacy"): (588.162109375, 10.0, 20.0, 4.0),
+    ("debris", True, 1, "legacy"): (616.171875, 14.0, 27.0, 4.0),
+    ("fluvial", True, 1, "offstep=off"): (814.1884765625, 10.0, 31.0, 6.0),
+    ("debris", True, 1, "offstep=off"): (842.1982421875, 14.0, 38.0, 6.0),
+    ("fluvial", True, 1, "offstep=stream"): (1175.2099609375, 10.0, 43.0,
+                                             18.0),
+    ("debris", True, 1, "offstep=stream"): (1203.2197265625, 14.0, 50.0,
+                                            18.0),
+    ("fluvial", True, 1, "uniform,xmom,perstream"): (1264.2666015625, 32.0,
+                                                     49.0, 21.0),
+    ("debris", True, 1, "uniform,xmom,perstream"): (1481.3408203125, 48.0,
+                                                    77.0, 21.0),
+    ("fluvial", True, 4, "sign"): (4388.67578125, 40.0, 148.0, 36.0),
+    ("fluvial", True, 4, "cluster"): (4303.58203125, 40.0, 140.0, 40.0),
+    ("fluvial", True, 2, "speed"): (2113.322265625, 20.0, 72.0, 24.0),
+}
+
 # Rounds per pass of the byte model (see the module docstring).
 K_ROUNDS_PER_PASS = 16
 NSTATE = 10
@@ -90,6 +114,18 @@ def round_ops(costs, albedo_on=True) -> dict:
         out[kind] = simple + sum(n * costs[c] for n, c in
                                  zip(weighted, WEIGHT_CLASSES[1:]))
     return out
+
+
+def closure_round_ops(costs, kind, albedo_on=True, nodes=1, tag="") -> float:
+    """Weighted operations per cell of one round of rule set `kind` with
+    `nodes` nodes under the closure whose kernel variant tag is `tag`
+    ('' for the default physics and face routing: the default round's
+    count times the nodes)."""
+    if not tag:
+        return round_ops(costs, albedo_on)[kind] * nodes
+    simple, *weighted = VARIANT_ROUND_OPS[(kind, albedo_on, nodes, tag)]
+    return simple + sum(n * costs[c] for n, c in
+                        zip(weighted, WEIGHT_CLASSES[1:]))
 
 
 def step_bytes_per_cell(iters: int, albedo_on=True) -> float:

@@ -21,8 +21,8 @@
 // owned tile inside a K1-cell ring. Each thread loads its cell's state
 // once into registers (the aux fields and, for owned cells, the deposits
 // into shared memory) and keeps it there across the launch's rounds. Round
-// r evaluates the round physics (`_round_payloads` under the default
-// closure) only where the owned tile still needs it, within rounds - r
+// r evaluates the round physics (`_round_payloads`) only where the owned
+// tile still needs it, within rounds - r
 // cells of it (the light cone; a warp is one row, so rows beyond the reach
 // issue nothing), then exchanges XG = 4 channels per barrier through a
 // double-buffered shared array: each thread stores its four payloads per
@@ -76,6 +76,27 @@
 // skipped here too, never added as +0.0, so the kernel takes the plain
 // version's adds and no others.
 //
+// Closure variants. Every CohortClosure the JAX package accepts is a
+// library of its own, this file built with the COHORT_* defines below
+// (ops/cohort.py `KernelVariant`, built at first use; the default
+// closure's library is built without them, and its code is what it was
+// before the variants). The physics variants change `round_payloads` only:
+// the legacy dispersion split (offsets off: exit weights from E[v+-],
+// offsets 1/2 and 1/3 on every face, no absent payload), offstep off
+// (Var[dL] from stepsize_var) or per face stream, the uniform velocity
+// family, the cross-moment regression (xmom) and the rules evaluated per
+// stream (perstream: four evaluations a cell, which spill at 80 registers
+// in the one-node kernel). The node rules change the N-node kernel's
+// routing. "sign" (nodes=4) doubles the face sums: each face's payload
+// times the source node's quadrant share, per target, 8 slots a channel
+// (181,248 B a block for fluvial, one block an SM); target k's arrival is
+// the sum of its two faces in push order. "cluster" (nodes=4) and "speed"
+// (nodes=2) keep the face rule's pooled sums; the receiving cell computes
+// the routing masks from the four arrivals' (w, w vx, w vy) and its own
+// round-entry node means (ops/cohort.py `_cluster_masks`), multiplies each
+// arrival by its 0/1 mask as the plain version does (0 x -x = -0.0), sums
+// the directions in order, and deposits the direction sum.
+//
 // Each cell's G is read and written only by the thread that owns the
 // cell, so the in-place update has no race.
 //
@@ -101,9 +122,49 @@
 
 namespace cg = cooperative_groups;
 
+// The closure variant (CohortClosure) a library is built for, as -D
+// defines (soillib_tpu_torch/_native.py, ops/cohort.py `KernelVariant`);
+// the default closure's library is built without them.
+#ifndef COHORT_OFFSETS
+#define COHORT_OFFSETS 1    // offsets: 1 quadrant-offset routing, 0 legacy
+#endif
+#ifndef COHORT_OFFSTEP
+#define COHORT_OFFSTEP 1    // offstep: 0 off, 1 pooled, 2 per face stream
+#endif
+#ifndef COHORT_UNIFORM
+#define COHORT_UNIFORM 0    // vdist: 0 "gauss", 1 "uniform"
+#endif
+#ifndef COHORT_XMOM
+#define COHORT_XMOM 0
+#endif
+#ifndef COHORT_PERSTREAM
+#define COHORT_PERSTREAM 0
+#endif
+#ifndef COHORT_RULE
+#define COHORT_RULE 0       // node rule: 0 face, 1 sign, 2 cluster, 3 speed
+#endif
+
 namespace {
 
 constexpr int NSTATE = 10;
+
+enum NodeRule { FACE = 0, SIGN = 1, CLUSTER = 2, SPEED = 3 };
+constexpr bool OFFSETS = COHORT_OFFSETS != 0;
+// Offset-conditional step moments: 0 off (Var[dL] from stepsize_var),
+// 1 pooled per cell, 2 per face stream. Only with the offsets closure.
+constexpr int OFFSTEP = OFFSETS ? COHORT_OFFSTEP : 0;
+constexpr bool UNIFORM = COHORT_UNIFORM != 0;
+constexpr bool XMOM = COHORT_XMOM != 0;
+constexpr bool PERSTREAM = COHORT_PERSTREAM != 0;
+constexpr int RULE = COHORT_RULE;
+static_assert(RULE >= FACE && RULE <= SPEED, "unknown node rule");
+static_assert(RULE != SIGN || OFFSETS, "node_rule sign needs the offsets");
+// Face-sum slots a channel holds in the N-node kernel: one per face, or,
+// for the sign rule, one per (face, target quadrant), 2 per face.
+constexpr int FACES = RULE == SIGN ? 8 : 4;
+// Blocks an SM holds of the N-node kernel: two, unless the sign rule's
+// doubled face sums leave shared memory for one.
+constexpr int NODES_MIN_BLOCKS = RULE == SIGN ? 1 : 2;
 
 // One-node geometry (mirrored by ops/cohort.py `kernel_geometry`).
 constexpr int K1 = 2;                  // rounds per launch at most = ring
@@ -198,12 +259,31 @@ struct Streams {
   float Epos, Eneg, cpos, cneg, m2pos, m2neg, Ppos;
 };
 
-// ops/cohort.py _axis_streams (gauss family).
+// ops/cohort.py _axis_streams, of the family UNIFORM selects.
 __device__ __forceinline__ Streams axis_streams(float mu, float m2) {
   Streams s;
   float var = fmaxf(m2 - mu * mu, 0.f);
   bool small = var <= F32(1e-12) * fmaxf(m2, EPS);
   float sigma = small ? 0.f : sqrtf(var);
+  if constexpr (UNIFORM) {
+    // v ~ U[lo, hi], half-width sqrt(3) sigma.
+    float s3 = F32(1.7320508075688772) * sigma;
+    float lo = mu - s3, hi = mu + s3;
+    float L = small ? 1.f : 2.f * s3;
+    float inv_L = 1.f / fmaxf(L, EPS);
+    float lo_p = fmaxf(lo, 0.f), hi_p = fmaxf(hi, 0.f);
+    float lo_n = fminf(lo, 0.f), hi_n = fminf(hi, 0.f);
+    s.Epos = small ? fmaxf(mu, 0.f)
+                   : 0.5f * (hi_p * hi_p - lo_p * lo_p) * inv_L;
+    s.Eneg = fmaxf(s.Epos - mu, 0.f);
+    s.cpos = small ? mu : 0.5f * (lo_p + hi_p);
+    s.cneg = small ? mu : 0.5f * (lo_n + hi_n);
+    s.m2pos = small ? m2 : THIRD * (hi_p * hi_p + hi_p * lo_p + lo_p * lo_p);
+    s.m2neg = small ? m2 : THIRD * (hi_n * hi_n + hi_n * lo_n + lo_n * lo_n);
+    s.Ppos = small ? (mu > 0.f ? 1.f : (mu < 0.f ? 0.f : 0.5f))
+                   : clampf(hi * inv_L, 0.f, 1.f);
+    return s;
+  }
   float sigma_s = small ? 1.f : sigma;
   float z = clampf(mu / sigma_s, -6.f, 6.f);
   float gauss = expf(-0.5f * z * z);
@@ -233,6 +313,17 @@ __device__ __forceinline__ float stepsize_expected(float vx, float vy) {
   return 0.5f * (step_axis(fabsf(vx)) + step_axis(fabsf(vy)));
 }
 
+// ops/transport.py stepsize_var.
+__device__ __forceinline__ float step_var_axis(float a) {
+  bool big = a >= INV_SQRT2;
+  float a_s = big ? a : 1.f;
+  return big ? 1.f / (12.f * a_s * a_s) : F32(0.9428090415820634) * a - a * a;
+}
+
+__device__ __forceinline__ float stepsize_var(float vx, float vy) {
+  return 0.25f * (step_var_axis(fabsf(vx)) + step_var_axis(fabsf(vy)));
+}
+
 // ops/transport.py _expm1_k.
 __device__ __forceinline__ float expm1_k(float x) {
   if (fabsf(x) < F32(0.01)) return x * (1.f + x * (0.5f + x * SIXTH));
@@ -260,15 +351,51 @@ __device__ __forceinline__ float expected_exp_step(float vx, float vy,
   return axis_mgf(fabsf(vx), beta) * axis_mgf(fabsf(vy), beta);
 }
 
-// ops/cohort.py _stream_geom (only the direction cosines are used).
+// ops/cohort.py _stream_geom: 1/RMS speed and the direction cosines.
 __device__ __forceinline__ void stream_geom(float m2_own, float m2_t,
-                                            float& u_own, float& u_t) {
+                                            float& inv_s, float& u_own,
+                                            float& u_t) {
   float zo = fmaxf(m2_own, 0.f);
   float zt = fmaxf(m2_t, 0.f);
   float s2 = zo + zt;
-  float inv_s = s2 <= EPS2 ? INV_EPS : 1.f / sqrtf(s2);
+  inv_s = s2 <= EPS2 ? INV_EPS : 1.f / sqrtf(s2);
   u_own = (zo <= 0.f ? 0.f : sqrtf(zo)) * inv_s;
   u_t = (zt <= 0.f ? 0.f : sqrtf(zt)) * inv_s;
+}
+
+__device__ __forceinline__ void stream_geom(float m2_own, float m2_t,
+                                            float& u_own, float& u_t) {
+  float inv_s;
+  stream_geom(m2_own, m2_t, inv_s, u_own, u_t);
+}
+
+// ops/cohort.py _regress_coef.
+[[maybe_unused]] __device__ __forceinline__ float regress_coef(float m2_own, float var_own,
+                                              float cov) {
+  bool small = var_own <= F32(1e-12) * fmaxf(m2_own, EPS);
+  return small ? 0.f : cov / var_own;
+}
+
+// ops/cohort.py _cond_stream: a stream's transverse moments (mt, m2t,
+// mxyc); without XMOM the terms of b are left out, as b = None leaves
+// them out there.
+__device__ __forceinline__ void cond_stream(float c_own, float m2_own,
+                                            float mu_own, float mu_t,
+                                            float m2_t, float b,
+                                            float var_own, float& mt,
+                                            float& m2t, float& mxyc) {
+  if constexpr (!XMOM) {
+    mt = mu_t;
+    m2t = fmaxf(m2_t, mt * mt);
+    mxyc = mu_t * c_own;
+  } else {
+    float dmu = c_own - mu_own;
+    mt = mu_t + b * dmu;
+    float ex2c = m2_own - 2.f * mu_own * c_own + mu_own * mu_own;
+    m2t = m2_t + 2.f * mu_t * b * dmu + b * b * (ex2c - var_own);
+    m2t = fmaxf(m2t, mt * mt);
+    mxyc = mu_t * c_own + b * (m2_own - mu_own * c_own);
+  }
 }
 
 // ops/cohort.py _trunc_step_moments.
@@ -371,12 +498,24 @@ __device__ __forceinline__ float rules_eval(const CohortParams& p, float dL,
   }
 }
 
+// The payloads `_round_payloads` leaves out (None) under the offsets
+// closure: the own-axis offset moments toward the face they reset to 0,
+// +x for fx/fx^2 (channels 6, 8) and +y for fy/fy^2 (channels 7, 9). The
+// legacy split leaves none out.
+__device__ __forceinline__ constexpr bool absent(int c, int d) {
+  return OFFSETS &&
+         (((c == 6 || c == 8) && d == 0) || ((c == 7 || c == 9) && d == 2));
+}
+
 // One cell's round: pay[c][d] = payload of output channel c toward
-// d in (+x, -x, +y, -y). ops/cohort.py _round_payloads, default closure.
+// d in (+x, -x, +y, -y). ops/cohort.py _round_payloads under the closure
+// the library is built for. With the sign rule, sh[8] receives the
+// quadrant shares of each face: xp (++, +-), xn (-+, --), yp (++, -+),
+// yn (+-, --).
 template <int KIND, bool ALBEDO>
 __device__ __forceinline__ void round_payloads(
     const CohortParams& p, const float* stv, const float* auxv,
-    float (*pay)[4]) {
+    float (*pay)[4], float* sh = nullptr) {
   using R = Rules<KIND, ALBEDO>;
   const float Llen = p.Llen;
   float w = stv[0];
@@ -387,6 +526,7 @@ __device__ __forceinline__ void round_payloads(
   float mxy = stv[5] * inv_w;
   float axl = auxv[0], ayl = auxv[1];
   (void)mxy;
+  (void)sh;
 
   float srms_sq = m2x + m2y;
   float sbar = srms_sq <= 0.f ? 0.f : sqrtf(srms_sq);
@@ -395,96 +535,216 @@ __device__ __forceinline__ void round_payloads(
   Streams sx = axis_streams(vbx, m2x);
   Streams sy = axis_streams(vby, m2y);
 
-  float mfx = clampf(stv[6] * inv_w, 0.f, 1.f);
-  float mfy = clampf(stv[7] * inv_w, 0.f, 1.f);
-  float vfx = stv[8] * inv_w - mfx * mfx;
-  float vfy = stv[9] * inv_w - mfy * mfy;
-  float gwx = offset_width(vfx, mfx);
-  float gwy = offset_width(vfy, mfy);
+  // Exit weights and the offset payload factors of channels 6-9 per face
+  // (pf[0] fx, pf[1] fy, pf[2] fx^2, pf[3] fy^2); the absent ones unused.
+  float wxp, wxn, wyp, wyn;
+  float pf[4][4];
+  float hwx = 0.f, hwy = 0.f;
+  float mgx_p = 0.f, mgx_n = 0.f, mgy_p = 0.f, mgy_n = 0.f;
+  if constexpr (OFFSETS) {
+    float mfx = clampf(stv[6] * inv_w, 0.f, 1.f);
+    float mfy = clampf(stv[7] * inv_w, 0.f, 1.f);
+    float vfx = stv[8] * inv_w - mfx * mfx;
+    float vfy = stv[9] * inv_w - mfy * mfy;
+    float gwx = offset_width(vfx, mfx);
+    float gwy = offset_width(vfy, mfy);
 
-  const float tiny = F32(1e-6);
-  float uxp_m = fmaxf(sx.cpos, tiny);
-  float uxn_m = fmaxf(-sx.cneg, tiny);
-  float uyp_m = fmaxf(sy.cpos, tiny);
-  float uyn_m = fmaxf(-sy.cneg, tiny);
-  float hwx = 0.5f * gwx, hwy = 0.5f * gwy;
+    const float tiny = F32(1e-6);
+    float uxp_m = fmaxf(sx.cpos, tiny);
+    float uxn_m = fmaxf(-sx.cneg, tiny);
+    float uyp_m = fmaxf(sy.cpos, tiny);
+    float uyn_m = fmaxf(-sy.cneg, tiny);
+    hwx = 0.5f * gwx;
+    hwy = 0.5f * gwy;
 
-  float mgx_p = 1.f - mfx, mgx_n = mfx;
-  float mgy_p = 1.f - mfy, mgy_n = mfy;
-  Quadrant pp = quadrant(uxp_m, uyp_m, mgx_p, mgy_p, gwx, gwy, hwx, hwy);
-  Quadrant pn = quadrant(uxp_m, uyn_m, mgx_p, mgy_n, gwx, gwy, hwx, hwy);
-  Quadrant np = quadrant(uxn_m, uyp_m, mgx_n, mgy_p, gwx, gwy, hwx, hwy);
-  Quadrant nn = quadrant(uxn_m, uyn_m, mgx_n, mgy_n, gwx, gwy, hwx, hwy);
+    mgx_p = 1.f - mfx;
+    mgx_n = mfx;
+    mgy_p = 1.f - mfy;
+    mgy_n = mfy;
+    Quadrant pp = quadrant(uxp_m, uyp_m, mgx_p, mgy_p, gwx, gwy, hwx, hwy);
+    Quadrant pn = quadrant(uxp_m, uyn_m, mgx_p, mgy_n, gwx, gwy, hwx, hwy);
+    Quadrant np = quadrant(uxn_m, uyp_m, mgx_n, mgy_p, gwx, gwy, hwx, hwy);
+    Quadrant nn = quadrant(uxn_m, uyn_m, mgx_n, mgy_n, gwx, gwy, hwx, hwy);
 
-  float Pxp = sx.Ppos, Pyp = sy.Ppos;
-  float Pxn_ = 1.f - Pxp, Pyn_ = 1.f - Pyp;
-  float a_pp = Pxp * Pyp, a_pn = Pxp * Pyn_;
-  float a_np = Pxn_ * Pyp, a_nn = Pxn_ * Pyn_;
+    float Pxp = sx.Ppos, Pyp = sy.Ppos;
+    float Pxn_ = 1.f - Pxp, Pyn_ = 1.f - Pyp;
+    float a_pp = Pxp * Pyp, a_pn = Pxp * Pyn_;
+    float a_np = Pxn_ * Pyp, a_nn = Pxn_ * Pyn_;
 
-  float q_pp_x = a_pp * pp.p_x, q_pn_x = a_pn * pn.p_x;
-  float q_np_x = a_np * np.p_x, q_nn_x = a_nn * nn.p_x;
-  float q_pp_y = a_pp - q_pp_x, q_pn_y = a_pn - q_pn_x;
-  float q_np_y = a_np - q_np_x, q_nn_y = a_nn - q_nn_x;
+    float q_pp_x = a_pp * pp.p_x, q_pn_x = a_pn * pn.p_x;
+    float q_np_x = a_np * np.p_x, q_nn_x = a_nn * nn.p_x;
+    float q_pp_y = a_pp - q_pp_x, q_pn_y = a_pn - q_pn_x;
+    float q_np_y = a_np - q_np_x, q_nn_y = a_nn - q_nn_x;
 
-  float wxp = q_pp_x + q_pn_x, wxn = q_np_x + q_nn_x;
-  float wyp = q_pp_y + q_np_y, wyn = q_pn_y + q_nn_y;
+    wxp = q_pp_x + q_pn_x;
+    wxn = q_np_x + q_nn_x;
+    wyp = q_pp_y + q_np_y;
+    wyn = q_pn_y + q_nn_y;
 
-  float a_, b_;
-  float pay_fy_xp = q_pp_x * (1.f - pp.gy_out) + q_pn_x * pn.gy_out;
-  float pay_fy_xn = q_np_x * (1.f - np.gy_out) + q_nn_x * nn.gy_out;
-  float pay_fx_yp = q_pp_y * (1.f - pp.gx_out) + q_np_y * np.gx_out;
-  float pay_fx_yn = q_pn_y * (1.f - pn.gx_out) + q_nn_y * nn.gx_out;
-  a_ = 1.f - pp.gy_out;
-  b_ = pn.gy_out;
-  float pay_fy2_xp = q_pp_x * (a_ * a_ + pp.v_gy) + q_pn_x * (b_ * b_ + pn.v_gy);
-  a_ = 1.f - np.gy_out;
-  b_ = nn.gy_out;
-  float pay_fy2_xn = q_np_x * (a_ * a_ + np.v_gy) + q_nn_x * (b_ * b_ + nn.v_gy);
-  a_ = 1.f - pp.gx_out;
-  b_ = np.gx_out;
-  float pay_fx2_yp = q_pp_y * (a_ * a_ + pp.v_gx) + q_np_y * (b_ * b_ + np.v_gx);
-  a_ = 1.f - pn.gx_out;
-  b_ = nn.gx_out;
-  float pay_fx2_yn = q_pn_y * (a_ * a_ + pn.v_gx) + q_nn_y * (b_ * b_ + nn.v_gx);
+    if constexpr (RULE == SIGN) {
+      // The shares of each face's exit weight by velocity-sign quadrant
+      // (0 where the face's weight is not positive).
+      const float qa[8] = {q_pp_x, q_pn_x, q_np_x, q_nn_x,
+                           q_pp_y, q_np_y, q_pn_y, q_nn_y};
+      const float wf[4] = {wxp, wxn, wyp, wyn};
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        float inv = wf[d] <= 0.f ? 0.f : 1.f / wf[d];
+        sh[2 * d] = qa[2 * d] * inv;
+        sh[2 * d + 1] = qa[2 * d + 1] * inv;
+      }
+    }
 
-  // Transverse moments per stream (_cond_stream, xmom off).
-  float m2y_xp = fmaxf(m2y, vby * vby), mxy_xp = vby * sx.cpos;
-  float m2y_xn = fmaxf(m2y, vby * vby), mxy_xn = vby * sx.cneg;
-  float m2x_yp = fmaxf(m2x, vbx * vbx), mxy_yp = vbx * sy.cpos;
-  float m2x_yn = fmaxf(m2x, vbx * vbx), mxy_yn = vbx * sy.cneg;
+    float a_, b_;
+    pf[1][0] = q_pp_x * (1.f - pp.gy_out) + q_pn_x * pn.gy_out;
+    pf[1][1] = q_np_x * (1.f - np.gy_out) + q_nn_x * nn.gy_out;
+    pf[0][2] = q_pp_y * (1.f - pp.gx_out) + q_np_y * np.gx_out;
+    pf[0][3] = q_pn_y * (1.f - pn.gx_out) + q_nn_y * nn.gx_out;
+    a_ = 1.f - pp.gy_out;
+    b_ = pn.gy_out;
+    pf[3][0] = q_pp_x * (a_ * a_ + pp.v_gy) + q_pn_x * (b_ * b_ + pn.v_gy);
+    a_ = 1.f - np.gy_out;
+    b_ = nn.gy_out;
+    pf[3][1] = q_np_x * (a_ * a_ + np.v_gy) + q_nn_x * (b_ * b_ + nn.v_gy);
+    a_ = 1.f - pp.gx_out;
+    b_ = np.gx_out;
+    pf[2][2] = q_pp_y * (a_ * a_ + pp.v_gx) + q_np_y * (b_ * b_ + np.v_gx);
+    a_ = 1.f - pn.gx_out;
+    b_ = nn.gx_out;
+    pf[2][3] = q_pn_y * (a_ * a_ + pn.v_gx) + q_nn_y * (b_ * b_ + nn.v_gx);
+    // The own-axis offset resets to the entry face: 1 toward -x / -y
+    // (the face weight), 0 toward +x / +y (absent).
+    pf[0][0] = pf[1][2] = pf[2][0] = pf[3][2] = 0.f;
+    pf[0][1] = pf[2][1] = wxn;
+    pf[1][3] = pf[3][3] = wyn;
+  } else {
+    // Legacy dispersion split: exit weights from the expected positive and
+    // negative speeds, uniform offsets (1/2, 1/3) on every face.
+    float denom = sx.Epos + sx.Eneg + sy.Epos + sy.Eneg;
+    float inv_denom = 1.f / (denom <= 0.f ? 1.f : denom);
+    wxp = sx.Epos * inv_denom;
+    wxn = sx.Eneg * inv_denom;
+    wyp = sy.Epos * inv_denom;
+    wyn = sy.Eneg * inv_denom;
+    const float wf[4] = {wxp, wxn, wyp, wyn};
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      pf[0][d] = pf[1][d] = wf[d] * 0.5f;
+      pf[2][d] = pf[3][d] = wf[d] * THIRD;
+    }
+  }
 
-  // Shared rules evaluation at the pooled direction and RMS speed.
-  float ax = sx.Epos + sx.Eneg;
-  float ay = sy.Epos + sy.Eneg;
-  float inv_an = 1.f / sqrtf(fmaxf(ax * ax + ay * ay, EPS2));
-  float ux = ax * inv_an;
-  float uy = ay * inv_an;
-  float dL = stepsize_expected(ux, uy) * Llen;
-  float inv = 1.f / fmaxf(sbar, EPS);
-  float facs[R::NK];
-  float w1 = rules_eval<KIND, ALBEDO>(p, dL, inv, safe_w, stv[NSTATE], ux, uy,
-                                      auxv[3], facs);
+  // Transverse moments per stream (_cond_stream); the cross-moment
+  // regression coefficients only with XMOM (Cauchy-Schwarz-clamped).
+  float bx = 0.f, by = 0.f, varx = 0.f, vary = 0.f;
+  if constexpr (XMOM) {
+    varx = fmaxf(m2x - vbx * vbx, 0.f);
+    vary = fmaxf(m2y - vby * vby, 0.f);
+    float prod = varx * vary;
+    float lim = prod <= 0.f ? 0.f : F32(0.99) * sqrtf(prod);
+    float cov = clampf(mxy - vbx * vby, -lim, lim);
+    bx = regress_coef(m2x, varx, cov);
+    by = regress_coef(m2y, vary, cov);
+  }
+  float my_xp, m2y_xp, mxy_xp, my_xn, m2y_xn, mxy_xn;
+  float mx_yp, m2x_yp, mxy_yp, mx_yn, m2x_yn, mxy_yn;
+  cond_stream(sx.cpos, sx.m2pos, vbx, vby, m2y, bx, varx, my_xp, m2y_xp,
+              mxy_xp);
+  cond_stream(sx.cneg, sx.m2neg, vbx, vby, m2y, bx, varx, my_xn, m2y_xn,
+              mxy_xn);
+  cond_stream(sy.cpos, sy.m2pos, vby, vbx, m2x, by, vary, mx_yp, m2x_yp,
+              mxy_yp);
+  cond_stream(sy.cneg, sy.m2neg, vby, vbx, m2x, by, vary, mx_yn, m2x_yn,
+              mxy_yn);
 
-  // Pooled offset-conditional step moments.
-  float mty = Pyp * mgy_p + (1.f - Pyp) * mgy_n;
-  float mtx = Pxp * mgx_p + (1.f - Pxp) * mgx_n;
-  float ux_r, uy_r;
-  stream_geom(m2x, m2y, ux_r, uy_r);
-  float et_x, vt_x, et_y, vt_y;
-  trunc_step_moments(mtx, hwx, ux_r, et_x, vt_x);
-  trunc_step_moments(mty, hwy, uy_r, et_y, vt_y);
-  float dL_o = 0.5f * (et_x + et_y) * Llen;
-  float dvar_o = 0.25f * (vt_x + vt_y) * p.Llen2;
+  // Per stream d: the step (dL, Var[dL]), friction weight and factors.
+  float dLd[4], dvd[4], w1d[4], fac[4][R::NK];
+  if constexpr (PERSTREAM) {
+    // The step rule and the rules at each stream's own direction cosines
+    // and RMS speed, with the arguments and order of the plain version's
+    // stream_phys.
+    const float m2a[4] = {sx.m2pos, sx.m2neg, m2x_yp, m2x_yn};
+    const float m2b[4] = {m2y_xp, m2y_xn, sy.m2pos, sy.m2neg};
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      float inv_s, u_own, u_t;
+      stream_geom(m2a[d], m2b[d], inv_s, u_own, u_t);
+      float ux = d < 2 ? u_own : u_t;
+      float uy = d < 2 ? u_t : u_own;
+      dLd[d] = stepsize_expected(ux, uy) * Llen;
+      dvd[d] = OFFSTEP == 0 ? p.Llen2 * stepsize_var(ux, uy) : 0.f;
+      w1d[d] = rules_eval<KIND, ALBEDO>(p, dLd[d], inv_s, safe_w, stv[NSTATE],
+                                        ux, uy, auxv[3], fac[d]);
+    }
+  } else {
+    // Shared rules evaluation at the pooled direction and RMS speed.
+    float ax = sx.Epos + sx.Eneg;
+    float ay = sy.Epos + sy.Eneg;
+    float inv_an = 1.f / sqrtf(fmaxf(ax * ax + ay * ay, EPS2));
+    float ux = ax * inv_an;
+    float uy = ay * inv_an;
+    float dL = stepsize_expected(ux, uy) * Llen;
+    float inv = 1.f / fmaxf(sbar, EPS);
+    float facs[R::NK];
+    float w1 = rules_eval<KIND, ALBEDO>(p, dL, inv, safe_w, stv[NSTATE], ux,
+                                        uy, auxv[3], facs);
+    float dvar = OFFSTEP == 0 ? p.Llen2 * stepsize_var(ux, uy) : 0.f;
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      dLd[d] = dL;
+      dvd[d] = dvar;
+      w1d[d] = w1;
+#pragma unroll
+      for (int k = 0; k < R::NK; ++k) fac[d][k] = facs[k];
+    }
+  }
+
+  if constexpr (OFFSTEP != 0) {
+    // Offset-conditional step moments replace (dL, Var[dL]) in the
+    // velocity advance.
+    float mty = sy.Ppos * mgy_p + (1.f - sy.Ppos) * mgy_n;
+    float mtx = sx.Ppos * mgx_p + (1.f - sx.Ppos) * mgx_n;
+    if constexpr (OFFSTEP == 2) {
+      // Per face stream: its own wall distances and direction cosines.
+      const float m_own[4] = {mgx_p, mgx_n, mgy_p, mgy_n};
+      const float m2own[4] = {sx.m2pos, sx.m2neg, sy.m2pos, sy.m2neg};
+      const float m2t[4] = {m2y_xp, m2y_xn, m2x_yp, m2x_yn};
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        float u_own, u_t, et_o, vt_o, et_t, vt_t;
+        stream_geom(m2own[d], m2t[d], u_own, u_t);
+        trunc_step_moments(m_own[d], d < 2 ? hwx : hwy, u_own, et_o, vt_o);
+        trunc_step_moments(d < 2 ? mty : mtx, d < 2 ? hwy : hwx, u_t, et_t,
+                           vt_t);
+        dLd[d] = 0.5f * (et_o + et_t) * Llen;
+        dvd[d] = 0.25f * (vt_o + vt_t) * p.Llen2;
+      }
+    } else {
+      // Pooled per cell.
+      float ux_r, uy_r;
+      stream_geom(m2x, m2y, ux_r, uy_r);
+      float et_x, vt_x, et_y, vt_y;
+      trunc_step_moments(mtx, hwx, ux_r, et_x, vt_x);
+      trunc_step_moments(mty, hwy, uy_r, et_y, vt_y);
+      float dL_o = 0.5f * (et_x + et_y) * Llen;
+      float dvar_o = 0.25f * (vt_x + vt_y) * p.Llen2;
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        dLd[d] = dL_o;
+        dvd[d] = dvar_o;
+      }
+    }
+  }
 
   float adv[4][5];
-  stream_advance(w1, dL_o, dvar_o, axl, ayl, sx.cpos, vby, sx.m2pos, m2y_xp,
-                 mxy_xp, adv[0]);
-  stream_advance(w1, dL_o, dvar_o, axl, ayl, sx.cneg, vby, sx.m2neg, m2y_xn,
-                 mxy_xn, adv[1]);
-  stream_advance(w1, dL_o, dvar_o, axl, ayl, vbx, sy.cpos, m2x_yp, sy.m2pos,
-                 mxy_yp, adv[2]);
-  stream_advance(w1, dL_o, dvar_o, axl, ayl, vbx, sy.cneg, m2x_yn, sy.m2neg,
-                 mxy_yn, adv[3]);
+  stream_advance(w1d[0], dLd[0], dvd[0], axl, ayl, sx.cpos, my_xp, sx.m2pos,
+                 m2y_xp, mxy_xp, adv[0]);
+  stream_advance(w1d[1], dLd[1], dvd[1], axl, ayl, sx.cneg, my_xn, sx.m2neg,
+                 m2y_xn, mxy_xn, adv[1]);
+  stream_advance(w1d[2], dLd[2], dvd[2], axl, ayl, mx_yp, sy.cpos, m2x_yp,
+                 sy.m2pos, mxy_yp, adv[2]);
+  stream_advance(w1d[3], dLd[3], dvd[3], axl, ayl, mx_yn, sy.cneg, m2x_yn,
+                 sy.m2neg, mxy_yn, adv[3]);
 
   float wa = alive ? w : 0.f;
   float wd[4] = {wa * wxp, wa * wxn, wa * wyp, wa * wyn};
@@ -495,22 +755,12 @@ __device__ __forceinline__ void round_payloads(
 #pragma unroll
     for (int d = 0; d < 4; ++d) pay[1 + q][d] = wd[d] * adv[d][q];
   }
-  pay[6][0] = 0.f;
-  pay[6][1] = wa * wxn;
-  pay[6][2] = wa * pay_fx_yp;
-  pay[6][3] = wa * pay_fx_yn;
-  pay[7][0] = wa * pay_fy_xp;
-  pay[7][1] = wa * pay_fy_xn;
-  pay[7][2] = 0.f;
-  pay[7][3] = wa * wyn;
-  pay[8][0] = 0.f;
-  pay[8][1] = wa * wxn;
-  pay[8][2] = wa * pay_fx2_yp;
-  pay[8][3] = wa * pay_fx2_yn;
-  pay[9][0] = wa * pay_fy2_xp;
-  pay[9][1] = wa * pay_fy2_xn;
-  pay[9][2] = 0.f;
-  pay[9][3] = wa * wyn;
+#pragma unroll
+  for (int c = 6; c < NSTATE; ++c) {
+#pragma unroll
+    for (int d = 0; d < 4; ++d)
+      pay[c][d] = absent(c, d) ? 0.f : wa * pf[c - 6][d];
+  }
 
   float wz[4] = {alive ? wxp : 0.f, alive ? wxn : 0.f, alive ? wyp : 0.f,
                  alive ? wyn : 0.f};
@@ -520,16 +770,10 @@ __device__ __forceinline__ void round_payloads(
     float cv = stv[NSTATE + c];
 #pragma unroll
     for (int d = 0; d < 4; ++d) {
-      pay[NSTATE + c][d] = clampf(cv * (wz[d] * facs[k]), -F32(1e30), F32(1e30));
+      pay[NSTATE + c][d] =
+          clampf(cv * (wz[d] * fac[d][k]), -F32(1e30), F32(1e30));
     }
   }
-}
-
-// The payloads `_round_payloads` leaves out (None): the own-axis offset
-// moments toward the face they reset to 0, +x for fx/fx^2 (channels 6, 8)
-// and +y for fy/fy^2 (channels 7, 9).
-__device__ __forceinline__ constexpr bool absent(int c, int d) {
-  return ((c == 6 || c == 8) && d == 0) || ((c == 7 || c == 9) && d == 2);
 }
 
 // Up to K1 rounds of a one-node state per launch (see the header). Dynamic
@@ -635,22 +879,86 @@ cohort_rounds_kernel(CohortParams p, int rounds,
   }
 }
 
+// The cluster and speed rules' routing masks at a receiving cell
+// (ops/cohort.py `_cluster_masks`): am[d] = (w, w vx, w vy) of direction
+// d's arrival, nm[j] = (w, w vx, w vy) of node j's round-entry state;
+// mk[d][j] = 1 where direction d's arrival joins node j.
+template <int NODES>
+__device__ __forceinline__ void route_masks(const float (*am)[3],
+                                            const float (*nm)[3],
+                                            float (*mk)[NODES]) {
+  const float PROTO = F32(0.7071067811865476);
+  bool live[NODES];
+  float vjx[NODES], vjy[NODES];
+#pragma unroll
+  for (int j = 0; j < NODES; ++j) {
+    live[j] = nm[j][0] > EPS;
+    float inv = 1.f / fmaxf(nm[j][0], EPS);
+    vjx[j] = nm[j][1] * inv;
+    vjy[j] = nm[j][2] * inv;
+  }
+#pragma unroll
+  for (int d = 0; d < 4; ++d) {
+    float inv_wa = 1.f / fmaxf(am[d][0], EPS);
+    float vax = am[d][1] * inv_wa;
+    float vay = am[d][2] * inv_wa;
+    float sa = sqrtf(fmaxf(vax * vax + vay * vay, EPS2));
+    float dist[NODES];
+#pragma unroll
+    for (int j = 0; j < NODES; ++j) {
+      float dl, dd;
+      if constexpr (RULE == SPEED) {
+        // [fast, slow]; dead nodes seed at sa and sa / 4.
+        float sj = sqrtf(fmaxf(vjx[j] * vjx[j] + vjy[j] * vjy[j], EPS2));
+        float e = sa - sj;
+        dl = e * e;
+        float f = sa - (j == 0 ? sa : 0.25f * sa);
+        dd = f * f;
+      } else {
+        // Dead nodes compete with their sign-quadrant prototype
+        // ([++, +-, -+, --]) scaled to the arrival's speed.
+        float px = j < 2 ? PROTO : -PROTO;
+        float py = (j & 1) ? -PROTO : PROTO;
+        float ex = vax - vjx[j], ey = vay - vjy[j];
+        dl = ex * ex + ey * ey;
+        float fx = vax - sa * px, fy = vay - sa * py;
+        dd = fx * fx + fy * fy;
+      }
+      dist[j] = live[j] ? dl : dd;
+    }
+    float dmin = dist[0];
+#pragma unroll
+    for (int j = 1; j < NODES; ++j) dmin = fminf(dmin, dist[j]);
+    bool taken = false;
+#pragma unroll
+    for (int j = 0; j < NODES; ++j) {
+      bool hit = dist[j] <= dmin && !taken;
+      mk[d][j] = hit ? 1.f : 0.f;
+      taken = taken || hit;
+    }
+  }
+}
+
 // One round of an N-node state (see the header). A cluster of CLN blocks
 // stacked along x; each block's dynamic shared memory holds
-// face[c][d][BXN][BYN], channel c's payload toward face d summed over the
-// cell's source nodes, and owners read their x-neighbours' sums across a
-// block edge from the neighbouring block of the cluster.
+// face[c][s][BXN][BYN], channel c's payload in face slot s summed over the
+// cell's source nodes (s = the face d, or for the sign rule 2 d + h, the
+// part of face d bound for the face's h-th quadrant), and owners read
+// their x-neighbours' sums across a block edge from the neighbouring
+// block of the cluster.
 template <int KIND, bool ALBEDO, int NODES>
-__global__ void __cluster_dims__(1, CLN, 1) __launch_bounds__(NTN, 2)
+__global__ void __cluster_dims__(1, CLN, 1)
+__launch_bounds__(NTN, NODES_MIN_BLOCKS)
 cohort_round_nodes_kernel(CohortParams p, const float* __restrict__ st,
                           const float* __restrict__ aux,
                           float* __restrict__ G, float* __restrict__ out) {
   using R = Rules<KIND, ALBEDO>;
   constexpr int P = NSTATE + R::C;
-  constexpr int FS = BXN * BYN;  // floats of one (channel, face) plane
+  constexpr int FS = BXN * BYN;  // floats of one (channel, slot) plane
+  constexpr int SPF = FACES / 4;  // slots per face
   extern __shared__ float face[];
-  float* stage = face + 4 * P * FS;  // 2 x P x FS: node states, in turn
-  float* gold = stage + 2 * P * FS;  // C x FS: the owners' deposits
+  float* stage = face + FACES * P * FS;  // 2 x P x FS: node states, in turn
+  float* gold = stage + 2 * P * FS;      // C x FS: the owners' deposits
   cg::cluster_group cluster = cg::this_cluster();
 
   const int tx = threadIdx.x;  // along y
@@ -669,7 +977,9 @@ cohort_round_nodes_kernel(CohortParams p, const float* __restrict__ st,
   const bool owner = inside && tx >= 1 && tx < BYN - 1 &&
                      !(rank == 0 && ty == 0) &&
                      !(rank == CLN - 1 && ty == BXN - 1);
-#define F(c, d) face[((c) * 4 + (d)) * FS + t]
+#define F(c, s) face[((c) * FACES + (s)) * FS + t]
+  // The round-entry (w, w vx, w vy) of each node here (cluster, speed).
+  [[maybe_unused]] float nm[NODES][3];
 
   if (inside) {
     // Asynchronous copies (cp.async) into this thread's own shared-memory
@@ -704,14 +1014,28 @@ cohort_round_nodes_kernel(CohortParams p, const float* __restrict__ st,
       float stv[P];
 #pragma unroll
       for (int c = 0; c < P; ++c) stv[c] = cur[c * FS + t];
+      if constexpr (RULE == CLUSTER || RULE == SPEED) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) nm[j][k] = stv[k];
+      }
       float pay[P][4];
-      round_payloads<KIND, ALBEDO>(p, stv, auxv, pay);
+      float sh[8];
+      round_payloads<KIND, ALBEDO>(p, stv, auxv, pay, sh);
 #pragma unroll
       for (int c = 0; c < P; ++c) {
 #pragma unroll
         for (int d = 0; d < 4; ++d) {
           if (absent(c, d)) continue;
-          F(c, d) = j == 0 ? pay[c][d] : F(c, d) + pay[c][d];
+          if constexpr (RULE == SIGN) {
+            // Each source node's payload times its quadrant share.
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float v = pay[c][d] * sh[2 * d + h];
+              F(c, 2 * d + h) = j == 0 ? v : F(c, 2 * d + h) + v;
+            }
+          } else {
+            F(c, d) = j == 0 ? pay[c][d] : F(c, d) + pay[c][d];
+          }
         }
       }
     }
@@ -719,10 +1043,10 @@ cohort_round_nodes_kernel(CohortParams p, const float* __restrict__ st,
 #pragma unroll
   for (int c = 0; c < P; ++c) {
 #pragma unroll
-    for (int d = 0; d < 4; ++d) {
+    for (int s = 0; s < FACES; ++s) {
       // Cells outside the domain emit nothing (the zero boundary); an
       // absent payload reads as the zero it stands for in the plain pz().
-      if (!inside || absent(c, d)) F(c, d) = 0.f;
+      if (!inside || absent(c, s / SPF)) F(c, s) = 0.f;
     }
   }
   // Every block of the cluster has written its face sums.
@@ -737,29 +1061,81 @@ cohort_round_nodes_kernel(CohortParams p, const float* __restrict__ st,
     const float* dn = ty < BXN - 1 ? face + (t + BYN)
                                    : cluster.map_shared_rank(face + tx,
                                                              (unsigned)(rank + 1));
+    // The arrival here of channel c's slot s: face d's comes from the
+    // donor on the opposite side.
+    auto arrival = [&](int c, int s) -> float {
+      const int d = s / SPF;
+      const int i = (c * FACES + s) * FS;
+      return d == 0 ? up[i]                      // +x payload of (x-1, y)
+           : d == 1 ? dn[i]                      // -x payload of (x+1, y)
+           : d == 2 ? face[i + t - 1]            // +y payload of (x, y-1)
+                    : face[i + t + 1];           // -y payload of (x, y+1)
+    };
+    [[maybe_unused]] float mk[4][NODES];
+    if constexpr (RULE == CLUSTER || RULE == SPEED) {
+      float am[4][3];
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) am[d][k] = arrival(k, d);
+      }
+      route_masks<NODES>(am, nm, mk);
+    }
 #pragma unroll
     for (int c = 0; c < P; ++c) {
-      // Face d's arrival here comes from the donor on the opposite side.
-      const float a0 = up[(c * 4 + 0) * FS];   // +x payload of (x-1, y)
-      const float a1 = dn[(c * 4 + 1) * FS];   // -x payload of (x+1, y)
-      const float a2 = face[(c * 4 + 2) * FS + t - 1];  // +y of (x, y-1)
-      const float a3 = face[(c * 4 + 3) * FS + t + 1];  // -y of (x, y+1)
       float o[NODES];
-      if constexpr (NODES == 4) {
-        o[0] = a0;
-        o[1] = a1;
-        o[2] = a2;
-        o[3] = a3;
+      float dep;
+      if constexpr (RULE == SIGN) {
+        // Target k's arrival sums its two faces in push order: ++ from +x
+        // and +y, +- from +x and -y, -+ from -x and +y, -- from -x and -y.
+        float b[8];
+#pragma unroll
+        for (int s = 0; s < 8; ++s) b[s] = arrival(c, s);
+        o[0] = absent(c, 0) ? b[4] : (absent(c, 2) ? b[0] : b[0] + b[4]);
+        o[1] = absent(c, 0) ? b[6] : (absent(c, 3) ? b[1] : b[1] + b[6]);
+        o[2] = absent(c, 1) ? b[5] : (absent(c, 2) ? b[2] : b[2] + b[5]);
+        o[3] = absent(c, 1) ? b[7] : (absent(c, 3) ? b[3] : b[3] + b[7]);
       } else {
-        o[0] = absent(c, 0) ? a1 : (absent(c, 1) ? a0 : a0 + a1);
-        o[1] = absent(c, 2) ? a3 : (absent(c, 3) ? a2 : a2 + a3);
+        float a[4];
+#pragma unroll
+        for (int d = 0; d < 4; ++d) a[d] = arrival(c, d);
+        if constexpr (RULE == CLUSTER || RULE == SPEED) {
+          // Each node sums its masked directions in direction order
+          // (multiplied, as the plain version does); deposits are the
+          // direction sum.
+#pragma unroll
+          for (int k = 0; k < NODES; ++k) {
+            bool first = true;
+#pragma unroll
+            for (int d = 0; d < 4; ++d) {
+              if (absent(c, d)) continue;
+              const float v = mk[d][k] * a[d];
+              o[k] = first ? v : o[k] + v;
+              first = false;
+            }
+          }
+          dep = a[0] + a[1];
+          dep = dep + a[2];
+          dep = dep + a[3];
+        } else if constexpr (NODES == 4) {
+          // Node k receives face k from its donor only.
+          o[0] = a[0];
+          o[1] = a[1];
+          o[2] = a[2];
+          o[3] = a[3];
+        } else {
+          o[0] = absent(c, 0) ? a[1] : (absent(c, 1) ? a[0] : a[0] + a[1]);
+          o[1] = absent(c, 2) ? a[3] : (absent(c, 3) ? a[2] : a[2] + a[3]);
+        }
       }
 #pragma unroll
       for (int k = 0; k < NODES; ++k) out[(k * P + c) * plane + cell] = o[k];
       if (c >= NSTATE) {
-        float dep = o[0];
+        if constexpr (RULE != CLUSTER && RULE != SPEED) {
+          dep = o[0];
 #pragma unroll
-        for (int k = 1; k < NODES; ++k) dep = dep + o[k];
+          for (int k = 1; k < NODES; ++k) dep = dep + o[k];
+        }
         G[(size_t)(c - NSTATE) * plane + cell] =
             gold[(c - NSTATE) * FS + t] + dep;
       }
@@ -784,11 +1160,10 @@ namespace {
 
 template <int KIND, bool ALBEDO, int NODES>
 constexpr int smem_bytes() {
+  constexpr int C = Rules<KIND, ALBEDO>::C;
   return NODES == 1
       ? (int)sizeof(float) * (8 * XG + 4 + Rules<KIND, ALBEDO>::C) * NT1
-      : (int)sizeof(float) *
-            ((NSTATE + Rules<KIND, ALBEDO>::C) * 6 + Rules<KIND, ALBEDO>::C) *
-            NTN;
+      : (int)sizeof(float) * ((NSTATE + C) * (FACES + 2) + C) * NTN;
 }
 
 template <int KIND, bool ALBEDO, int NODES>
@@ -837,15 +1212,34 @@ cudaError_t launch_nodes(int nodes, const CohortParams& p,
                          const CohortGeom& g, const float* st,
                          const float* aux, float* G, float* out,
                          cudaStream_t stream) {
+  // The node counts the node rule runs with: face 1, 2 and 4; sign and
+  // cluster 4; speed 2 (the others are not built into this library).
   switch (nodes) {
-    case 1: return launch<KIND, ALBEDO, 1>(p, g, st, aux, G, out, stream);
-    case 2: return launch<KIND, ALBEDO, 2>(p, g, st, aux, G, out, stream);
-    case 4: return launch<KIND, ALBEDO, 4>(p, g, st, aux, G, out, stream);
-    default: return cudaErrorInvalidValue;
+    case 1:
+      if constexpr (RULE == FACE)
+        return launch<KIND, ALBEDO, 1>(p, g, st, aux, G, out, stream);
+      break;
+    case 2:
+      if constexpr (RULE == FACE || RULE == SPEED)
+        return launch<KIND, ALBEDO, 2>(p, g, st, aux, G, out, stream);
+      break;
+    case 4:
+      if constexpr (RULE == FACE || RULE == SIGN || RULE == CLUSTER)
+        return launch<KIND, ALBEDO, 4>(p, g, st, aux, G, out, stream);
+      break;
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
+
+// The closure variant this library was built for, packed as ops/cohort.py
+// `KernelVariant.code` packs it: offsets | offstep << 1 | uniform << 3 |
+// xmom << 4 | perstream << 5 | rule << 6.
+extern "C" int cohort_variant() {
+  return (int)OFFSETS | OFFSTEP << 1 | (int)UNIFORM << 3 | (int)XMOM << 4 |
+         (int)PERSTREAM << 5 | RULE << 6;
+}
 
 // C entry point (bound with ctypes by ops/cohort.py). kind: 0 fluvial,
 // 1 debris; albedo: 0/1; nodes: 1, 2 or 4; g: the launch geometry,

@@ -211,19 +211,24 @@ def _node_masks(nnodes, speed, node_rule="face"):
     """Birth-node assignment for the N-node mixture (CohortClosure.nodes):
     face rule, a newborn cohort joins the node of the face its velocity
     points toward ([+x, -x, +y, -y]; nodes=2 pools the signs per axis);
-    sign rule, its velocity sign quadrant ([++, +-, -+, --])."""
-    if node_rule == "sign":
+    sign and cluster rules, its velocity sign quadrant ([++, +-, -+, --];
+    cluster nodes seed from the quadrant prototypes); speed rule
+    ([fast, slow]), the fast node (the slow one fills from slow
+    arrivals). Any other rule is the face rule, as in the JAX package."""
+    if node_rule == "speed":
+        if nnodes != 2:
+            raise ValueError("node_rule='speed' requires nodes=2")
+        one = torch.ones_like(speed[0])
+        return [one, torch.zeros_like(one)]
+    if node_rule in ("sign", "cluster"):
         if nnodes != 4:
-            raise ValueError("node_rule='sign' requires nodes=4")
+            raise ValueError(f"node_rule={node_rule!r} requires nodes=4")
         xpos = speed[0] >= 0.0
         ypos = speed[1] >= 0.0
         return [torch.where(xpos & ypos, 1.0, 0.0),
                 torch.where(xpos & ~ypos, 1.0, 0.0),
                 torch.where(~xpos & ypos, 1.0, 0.0),
                 torch.where(~xpos & ~ypos, 1.0, 0.0)]
-    if node_rule != "face":
-        raise NotImplementedError(
-            f"node_rule={node_rule!r} is not ported (ROADMAP queue A item 5)")
     isx = torch.abs(speed[0]) >= torch.abs(speed[1])
     if nnodes == 2:
         mx = torch.where(isx, 1.0, 0.0)

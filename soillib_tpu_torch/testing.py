@@ -1,0 +1,99 @@
+"""Seeded cohort problems shared by the port's tests and `chip_smoke.py`:
+the closures of the JAX package's gradient tests by name, the JAX kernel
+tests' seeded cohort state, its split over a closure's nodes, and the
+band problem of the gradient tests. Imports numpy and torch only.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from soillib_tpu_torch.ops.cohort import NSTATE, CohortClosure
+
+# The closures the JAX package's reverse-mode sweep drives
+# (tests/test_grad_closures.py), by name.
+CLOSURES = {
+    "legacy": CohortClosure(offsets=False, offstep=False),
+    "offstep-off": CohortClosure(offstep=False),
+    "default": CohortClosure(),
+    "stream": CohortClosure(offstep="stream"),
+    "all-on": CohortClosure(vdist="uniform", xmom=True, perstream=True),
+    "nodes2": CohortClosure(nodes=2),
+    "nodes4": CohortClosure(nodes=4),
+    "sign": CohortClosure(nodes=4, node_rule="sign"),
+    "cluster": CohortClosure(nodes=4, node_rule="cluster"),
+    "speed": CohortClosure(nodes=2, node_rule="speed"),
+}
+
+# Those that run another build of the cohort kernel than the default
+# closure's (ops/cohort.py `KernelVariant`).
+VARIANTS = ("legacy", "offstep-off", "stream", "all-on", "sign", "cluster",
+            "speed")
+
+
+def cohort_arrays(kind, albedo, W=72, H=60, seed=0, mass_scale=1.0,
+                  aux3_scale=1.0):
+    """Seeded cohort state (S, W, H) and aux (4, W, H), float32 numpy: the
+    JAX kernel tests' recipe (tests/test_sweep.py `_cohort_problem`)."""
+    rng = np.random.default_rng(seed)
+    C = (7 if albedo else 4) if kind == "fluvial" else (6 if albedo else 3)
+    w0 = np.abs(rng.normal(size=(W, H))) + 0.5
+    sp = rng.normal(size=(2, W, H)) * 3.0
+    carried = np.abs(rng.normal(size=(C, W, H)))
+    carried[0] *= mass_scale
+    accel = rng.normal(size=(2, W, H))
+    if kind == "fluvial":
+        aux3 = -np.abs(rng.normal(size=(W, H))) * aux3_scale  # decay rate
+    else:
+        aux3 = 0.5 * rng.normal(size=(W, H))                  # excess slope
+    st = np.concatenate([np.stack([
+        w0, w0 * sp[0], w0 * sp[1], w0 * sp[0] ** 2, w0 * sp[1] ** 2,
+        w0 * sp[0] * sp[1], w0 * 0.5, w0 * 0.5, w0 / 3.0, w0 / 3.0]),
+        carried]).astype(np.float32)
+    aux = np.concatenate([accel, np.ones((1, W, H)), aux3[None]]).astype(
+        np.float32)
+    return st, aux
+
+
+def split_nodes(st, closure):
+    """A one-ensemble state tensor (S, W, H) split over `closure`'s nodes as
+    tests/test_sweep.py seeds the JAX kernel's node tests: by entry face
+    for node_rule "face", by velocity sign quadrant for "sign" and
+    "cluster", and all of it in the fast node (the slow one empty) for
+    "speed"."""
+    if closure.nodes == 1:
+        return st
+    vx, vy = st[1] / st[0], st[2] / st[0]
+    isx = vx.abs() >= vy.abs()
+    if closure.node_rule == "speed":
+        masks = [torch.ones_like(vx), torch.zeros_like(vx)]
+    elif closure.node_rule in ("sign", "cluster"):
+        masks = [(vx >= 0) & (vy >= 0), (vx >= 0) & (vy < 0),
+                 (vx < 0) & (vy >= 0), (vx < 0) & (vy < 0)]
+    elif closure.nodes == 2:
+        masks = [isx, ~isx]
+    else:
+        masks = [isx & (vx >= 0), isx & (vx < 0), ~isx & (vy >= 0),
+                 ~isx & (vy < 0)]
+    return torch.cat([st * m.to(st.dtype)[None] for m in masks]).contiguous()
+
+
+def band_problem(closure, v):
+    """tests/test_grad_closures.py's state and aux on v's grid and device:
+    weight on a diagonal band, the rest EXACT zeros (still cells, dead
+    streams, zero moments); for N nodes the other nodes are exact-zero
+    ensembles. The velocity field v enters the state."""
+    W, H = v.shape
+    z = torch.zeros((W, H), device=v.device)
+    o = torch.ones((W, H), device=v.device)
+    ix = (torch.arange(W, device=v.device)[:, None]
+          - torch.arange(H, device=v.device)[None, :])
+    wgt = torch.where(ix.abs() <= 1, 1.0, 0.0)
+    st = [wgt, wgt * v, 0.3 * wgt * v, wgt * v * v, z, z,
+          0.5 * wgt, 0.5 * wgt, wgt / 3.0, wgt / 3.0,
+          wgt, 0.1 * wgt, wgt * v, z, 0.2 * wgt, 0.2 * wgt, 0.2 * wgt]
+    assert len(st) == NSTATE + 7
+    st = st + [z] * ((closure.nodes - 1) * len(st))
+    aux = [0.05 * o, -0.02 * o, o, -0.1 * o]
+    return torch.stack(st), torch.stack(aux)

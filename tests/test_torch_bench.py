@@ -1,21 +1,26 @@
 """The port's headline bench (soillib_tpu_torch/bench.py) and its FP32
 probe's plain chains (soillib_tpu_torch/ops/fp32_chain.py) on the CPU,
 against the JAX package's bench.py: the byte model, the constant
-operation table (recomputed from the JAX jaxpr per weight class, so a
-drift of the JAX package shows here), the port's own dispatch count, the
+operation tables of the default closure and of each closure variant
+(recomputed from the JAX jaxpr per weight class, so a drift of the JAX
+package shows here), the port's own dispatch count, the
 JSON line of `main --device cpu`, and the plain chains."""
 
 import contextlib
+import dataclasses
 import io
 import json
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import bench as jax_bench
 from soillib_tpu_torch import bench
-from soillib_tpu_torch.ops import fp32_chain
+from soillib_tpu_torch.ops import cohort, fp32_chain
+from soillib_tpu_torch.testing import CLOSURES, VARIANTS
 
 
 def test_byte_model_matches_jax_bench():
@@ -47,6 +52,65 @@ def test_op_table_matches_jax_jaxpr_counts(albedo_on):
     got = bench.round_ops(costs, albedo_on)
     for kind in ("fluvial", "debris"):
         assert got[kind] == pytest.approx(want[kind], rel=1e-9)
+
+
+def _variant_cases():
+    """(closure name, rule kind, nodes, kernel variant tag) of every solve
+    a closure variant changes: the node rules reach the fluvial solve
+    only."""
+    out = []
+    for name in VARIANTS:
+        cl = CLOSURES[name]
+        for kind in ("fluvial",) if cl.nodes > 1 else ("fluvial", "debris"):
+            out.append((name, kind, cl.nodes,
+                        cohort.kernel_variant(cl, cl.nodes).tag))
+    return out
+
+
+@pytest.mark.parametrize("name,kind,nodes,tag", _variant_cases())
+def test_variant_op_table_matches_jax_jaxpr_counts(name, kind, nodes, tag):
+    """VARIANT_ROUND_OPS per weight class = the JAX bench's count
+    (`_count_ops`) of the JAX round under the closure, on the same
+    counting inputs as `cohort_round_ops` (ones on 8 x 128, default
+    parameters, albedo on, Llen 0.11), each class's weight at 1 in turn;
+    and `closure_round_ops` weighs the row by the costs."""
+    from soillib_tpu.models.erosion import make_debris_rules, \
+        make_fluvial_rules
+    from soillib_tpu.models.params import ErosionParams
+    from soillib_tpu.ops import cohort as jax_cohort
+
+    W, H, Llen = 8, 128, 0.11
+    p = ErosionParams()
+    p.trackAlbedo = True
+    rules = (make_fluvial_rules(p, Llen) if kind == "fluvial"
+             else make_debris_rules(p, Llen, 1.0))
+    C = 7 if kind == "fluvial" else 6
+    cl = jax_cohort.CohortClosure(**dataclasses.asdict(CLOSURES[name]))
+    jaxpr = jax.make_jaxpr(lambda st, G, aux: jax_cohort.cohort_round(
+        st, G, aux, rules, Llen, jax_cohort.shift_push, cl))(
+        jnp.ones((nodes * (jax_cohort.NSTATE + C), W, H)),
+        jnp.zeros((C, W, H)), jnp.ones((4, W, H)))
+    zero = dict.fromkeys(("exp", "div", "sqrt"), 0.0)
+
+    def count(costs):
+        return jax_bench._count_ops(jaxpr.jaxpr, costs, W * H) / (W * H)
+
+    base = count(zero)
+    want = [base] + [count({**zero, c: 1.0}) - base
+                     for c in ("exp", "div", "sqrt")]
+    np.testing.assert_allclose(
+        bench.VARIANT_ROUND_OPS[(kind, True, nodes, tag)], want, rtol=1e-9)
+    costs = {"exp": 4.0, "div": 9.0, "sqrt": 6.5}
+    assert bench.closure_round_ops(costs, kind, True, nodes, tag) == (
+        pytest.approx(count(costs), rel=1e-9))
+
+
+def test_variant_op_table_has_a_row_for_each_variant_solve():
+    assert sorted(bench.VARIANT_ROUND_OPS) == sorted(
+        (kind, True, nodes, tag) for _, kind, nodes, tag in _variant_cases())
+    costs = {"exp": 4.0, "div": 9.0, "sqrt": 6.5}
+    assert bench.closure_round_ops(costs, "fluvial", True, 4) == (
+        4 * bench.round_ops(costs)["fluvial"])
 
 
 @pytest.mark.parametrize("albedo_on", [True, False])

@@ -4,6 +4,7 @@ wrapper computes and hands to the kernel (`kernel_geometry`), and what the
 wrapper refuses. The kernels themselves run only on the card
 (tests/test_torch_cuda.py)."""
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -16,6 +17,7 @@ from soillib_tpu_torch.models.params import ErosionParams
 from soillib_tpu_torch.ops import cohort
 from tests.test_torch_cuda import (
     CASES,
+    CLOSURES,
     LLEN,
     TOL,
     cohort_arrays,
@@ -58,16 +60,18 @@ def _carried(kind, albedo):
 @pytest.mark.parametrize("kind,albedo", CASES)
 def test_every_launch_fits_a_block(kind, albedo, nodes):
     """Every geometry the wrapper can launch (each rule set, albedo on and
-    off, each node count, each rounds per launch) fits one block of the
-    H100: 227 KB of shared memory and 1024 threads; an N-node cluster is
-    at most 8 blocks (the portable size)."""
+    off, each node count and node rule, each rounds per launch) fits one
+    block of the H100: 227 KB of shared memory and 1024 threads; an N-node
+    cluster is at most 8 blocks (the portable size)."""
     C = _carried(kind, albedo)
+    rules = ["face"] + {2: ["speed"], 4: ["sign", "cluster"]}.get(nodes, [])
     for rounds in (range(1, K + 1) if nodes == 1 else [1]):
-        g = cohort.kernel_geometry(C, nodes, 4096, 4096, rounds)
-        assert g.smem <= cohort.MAX_SHARED_BYTES == 232_448
-        assert g.block[0] * g.block[1] <= 1024
-        assert g.cluster <= 8 and g.grid[1] % g.cluster == 0
-        assert g.rounds == rounds
+        for rule in rules:
+            g = cohort.kernel_geometry(C, nodes, 4096, 4096, rounds, rule)
+            assert g.smem <= cohort.MAX_SHARED_BYTES == 232_448
+            assert g.block[0] * g.block[1] <= 1024
+            assert g.cluster <= 8 and g.grid[1] % g.cluster == 0
+            assert g.rounds == rounds
 
 
 def test_geometry_mirrors_the_kernel_source():
@@ -84,8 +88,8 @@ def test_geometry_mirrors_the_kernel_source():
     assert const("CLN") == cohort.NODES_CLUSTER
     assert const("XG") == cohort.EXCHANGE_CHANNELS
     assert "(8 * XG + 4 + Rules<KIND, ALBEDO>::C) * NT1" in src
-    assert ("((NSTATE + Rules<KIND, ALBEDO>::C) * 6 + Rules<KIND, ALBEDO>::C)"
-            in src)
+    assert "((NSTATE + C) * (FACES + 2) + C) * NTN" in src
+    assert "constexpr int FACES = RULE == SIGN ? 8 : 4;" in src
 
 
 @pytest.mark.parametrize("nodes", [1, 4])
@@ -101,6 +105,43 @@ def test_grid_covers_the_domain(W, H, nodes):
     clusters = g.grid[1] // g.cluster
     assert g.grid[0] * own_y >= H > (g.grid[0] - 1) * own_y
     assert clusters * own_x >= W > (clusters - 1) * own_x
+
+
+@pytest.mark.parametrize("name,nodes,tag", [
+    ("default", 1, ""), ("nodes4", 4, ""), ("legacy", 1, "legacy"),
+    ("offstep-off", 1, "offstep=off"), ("stream", 1, "offstep=stream"),
+    ("all-on", 1, "uniform,xmom,perstream"), ("sign", 4, "sign"),
+    ("sign", 1, ""), ("cluster", 4, "cluster"), ("speed", 2, "speed")])
+def test_kernel_variant_of_each_closure(name, nodes, tag):
+    """Each closure names the kernel library built for it: the default
+    physics with face routing (or any rule at one node, where no rule is
+    read) the library built without defines, every other variant a
+    library of its own, with -D defines, a file name and a launch key that
+    name it; the variant code is the one csrc/cohort_round.cu's
+    `cohort_variant` packs."""
+    from soillib_tpu_torch import _native
+
+    v = cohort.kernel_variant(CLOSURES[name], nodes)
+    assert v.tag == tag
+    assert (v.defines() == ()) == (tag == "")
+    assert cohort.launch_key("fluvial", nodes, v.tag) == ",".join(
+        ["fluvial"] + ([f"nodes={nodes}"] if nodes > 1 else [])
+        + ([tag] if tag else []))
+    if tag:
+        assert len(v.defines()) == 6
+        assert _native._target("cohort_round", v.defines()) != \
+            _native._target("cohort_round")
+    src = SOURCE.read_text()
+    assert ("return (int)OFFSETS | OFFSTEP << 1 | (int)UNIFORM << 3 | "
+            "(int)XMOM << 4 |\n         (int)PERSTREAM << 5 | RULE << 6;"
+            in src)
+    assert v.code == (int(v.offsets) | v.offstep << 1 | int(v.uniform) << 3
+                      | int(v.xmom) << 4 | int(v.perstream) << 5
+                      | ("face", "sign", "cluster", "speed").index(v.rule)
+                      << 6)
+    for d in v.defines():
+        macro = d[2:].split("=")[0]
+        assert f"#ifndef {macro}\n#define {macro} " in src
 
 
 def test_wrapper_raises_on_cpu_tensors_and_bad_shapes():
@@ -130,6 +171,16 @@ def test_wrapper_raises_on_cpu_tensors_and_bad_shapes():
         cohort.cohort_rounds_cuda(st4, aux, G, rules, LLEN, 2, nodes=4)
     with pytest.raises(ValueError, match="nodes must be"):
         cohort.cohort_rounds_cuda(st, aux, G, rules, LLEN, nodes=3)
+    st2 = torch.rand((28, W, H)) + 0.1
+    for rule in ("sign", "cluster"):
+        with pytest.raises(ValueError, match="requires nodes=4"):
+            cohort.cohort_rounds_cuda(
+                st2, aux, G, rules, LLEN, nodes=2,
+                closure=soil.CohortClosure(node_rule=rule))
+    with pytest.raises(ValueError, match="requires nodes=2"):
+        cohort.cohort_rounds_cuda(
+            st4, aux, G, rules, LLEN, nodes=4,
+            closure=soil.CohortClosure(node_rule="speed"))
 
     class Other:
         kind = "other"
@@ -148,9 +199,10 @@ class PlainLaunches:
         self.calls = []
 
     def __call__(self, st, aux, G, rules, Llen, rounds=1, out=None,
-                 nodes=1):
+                 nodes=1, closure=None):
         self.calls.append((rounds, nodes))
-        cl = soil.CohortClosure(nodes=nodes)
+        cl = dataclasses.replace(closure or soil.CohortClosure(),
+                                 nodes=nodes, colors=1)
         for _ in range(rounds):
             st, G_new = cohort.cohort_round(st, G, aux, rules, Llen, cl)
             G.copy_(G_new)
@@ -162,6 +214,10 @@ class PlainLaunches:
     (None, 35, [(K, 1)] * (34 // K) + [(1, 1)] * (1 + 34 % K)),
     (soil.CohortClosure(colors=2), 5, [(1, 1)] * 10),
     (soil.CohortClosure(nodes=2), 4, [(1, 2)] * 4),
+    (soil.CohortClosure(offsets=False, offstep=False), 5,
+     [(K, 1)] * (4 // K) + [(1, 1)] * (1 + 4 % K)),
+    (soil.CohortClosure(nodes=4, node_rule="sign", colors=2), 3,
+     [(1, 4)] * 6),
 ])
 def test_advance_splits_launches(monkeypatch, closure, iters, want):
     """`cohort_advance_cuda`'s schedule with the plain round standing in

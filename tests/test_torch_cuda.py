@@ -9,8 +9,9 @@ suite). Every test carries the `cuda` marker and skips without a CUDA
 device: the kernels have no CPU mode.
 
 Cohort kernel: `cohort_arrays` is the JAX kernel tests' seeded recipe
-(tests/test_sweep.py `_cohort_problem`) and `plain_exit_round` the
-adaptive-exit probe; both are shared with tests/test_torch_cohort.py.
+(tests/test_sweep.py `_cohort_problem`; soillib_tpu_torch/testing.py,
+shared with chip_smoke.py) and `plain_exit_round` the adaptive-exit
+probe; both are shared with tests/test_torch_cohort.py.
 Tolerances are the JAX package's kernel-vs-reference bars: one round rtol
 2e-6 / atol 1e-5, several rounds rtol 2e-5 / atol 1e-5 on the deposits;
 bitwise where the kernel keeps the plain summation order (one-node solves
@@ -31,34 +32,18 @@ from soillib_tpu_torch.models import erosion
 from soillib_tpu_torch.models.params import ErosionParams
 from soillib_tpu_torch.ops import cohort, graph, sweep
 from soillib_tpu_torch.ops import graph_tiled as gt
+from soillib_tpu_torch.testing import (
+    CLOSURES,
+    VARIANTS,
+    band_problem,
+    cohort_arrays,
+    split_nodes,
+)
 
 LLEN = math.sqrt(0.02)  # cell diagonal at scale (0.1, 0.1)
 TOL = 1e-6
 CASES = [("fluvial", True), ("fluvial", False), ("debris", True),
          ("debris", False)]
-
-
-def cohort_arrays(kind, albedo, W=72, H=60, seed=0, mass_scale=1.0,
-                  aux3_scale=1.0):
-    """Seeded cohort state (S, W, H) and aux (4, W, H), float32 numpy."""
-    rng = np.random.default_rng(seed)
-    C = (7 if albedo else 4) if kind == "fluvial" else (6 if albedo else 3)
-    w0 = np.abs(rng.normal(size=(W, H))) + 0.5
-    sp = rng.normal(size=(2, W, H)) * 3.0
-    carried = np.abs(rng.normal(size=(C, W, H)))
-    carried[0] *= mass_scale
-    accel = rng.normal(size=(2, W, H))
-    if kind == "fluvial":
-        aux3 = -np.abs(rng.normal(size=(W, H))) * aux3_scale  # decay rate
-    else:
-        aux3 = 0.5 * rng.normal(size=(W, H))                  # excess slope
-    st = np.concatenate([np.stack([
-        w0, w0 * sp[0], w0 * sp[1], w0 * sp[0] ** 2, w0 * sp[1] ** 2,
-        w0 * sp[0] * sp[1], w0 * 0.5, w0 * 0.5, w0 / 3.0, w0 / 3.0]),
-        carried]).astype(np.float32)
-    aux = np.concatenate([accel, np.ones((1, W, H)), aux3[None]]).astype(
-        np.float32)
-    return st, aux
 
 
 def port_rules(kind, albedo, W, H, params=None):
@@ -652,6 +637,13 @@ def node_state(kind, albedo, nodes, W, H, seed=0):
     return np.concatenate([s for s, _ in sts]), sts[0][1]
 
 
+def closure_state(kind, albedo, closure, W, H, seed=0, mass_scale=1.0):
+    """A seeded cohort state for `closure` and its aux (float32 numpy): one
+    ensemble (`cohort_arrays`) split over the nodes (`split_nodes`)."""
+    st, aux = cohort_arrays(kind, albedo, W, H, seed, mass_scale)
+    return split_nodes(torch.from_numpy(st), closure).numpy(), aux
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,albedo", CASES)
 @pytest.mark.parametrize("nodes", [2, 4])
@@ -852,3 +844,88 @@ def test_cascade_on_card_launches_the_cohort_kernel():
         want = v.numpy()
         _close(getattr(card, k), v, 2e-5,
                1e-5 * float(np.abs(want).max()), f"cascade {k}")
+
+
+# ---------------------------------------------------------------------------
+# The closure variants of the cohort kernel: each closure runs the library
+# built for it (ops/cohort.py `KernelVariant`).
+# ---------------------------------------------------------------------------
+
+def variant_problem(kind, name, W, H, seed):
+    """A closure variant's seeded state and aux on the card and its rule
+    set; debris with physical debris masses (1e-3 of the seeded carried
+    mass: at O(1) masses the non-contractive debris rules grow the carried
+    mass to the 1e30 clip within a few rounds)."""
+    st, aux = _on_card(*closure_state(kind, True, CLOSURES[name], W, H, seed,
+                                      1.0 if kind == "fluvial" else 1e-3))
+    return st, aux, port_rules(kind, True, W, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fluvial", "debris"])
+@pytest.mark.parametrize("name", VARIANTS)
+def test_closure_variant_kernel_matches_plain_on_card(name, kind):
+    """Each closure variant's kernel against the plain round on the card at
+    1000 x 744 (not a multiple of the tiles or clusters): one round, state
+    and deposits bitwise; 16 rounds through the wrapper's split, bitwise
+    for one node (ROUNDS_PER_LAUNCH rounds a launch) and at rtol 2e-5 /
+    atol 1e-5 on the deposits for N nodes; every launch counted under the
+    variant's key."""
+    cl = CLOSURES[name]
+    W, H = 1000, 744
+    st, aux, tr = variant_problem(kind, name, W, H, seed=13)
+    nodes = cl.nodes
+    C = cohort.n_deposits(st.shape[0], cl)
+    G = torch.zeros((C, W, H), device="cuda")
+    key = cohort.launch_key(kind, nodes,
+                            cohort.kernel_variant(cl, nodes).tag)
+    n0 = cohort.cohort_round_launches.get(key, 0)
+    st_k = cohort.cohort_round_cuda(st, aux, G, tr, LLEN, nodes=nodes,
+                                    closure=cl)
+    st_p, G_p = cohort.cohort_round(st, torch.zeros_like(G), aux, tr, LLEN,
+                                    cl)
+    _equal(st_k, st_p, "1-round state")
+    _equal(G, G_p, "1-round deposits")
+    st_k, g_k = cohort.cohort_advance_cuda(st, aux, tr, 16, LLEN, closure=cl)
+    st_p, g_p = cohort.cohort_advance_reference(st, aux, tr, 16, LLEN,
+                                                closure=cl)
+    if nodes == 1:
+        _equal(st_k, st_p, "16-round state")
+        _equal(g_k, g_p, "16-round deposits")
+    else:
+        _close(g_k, g_p, 2e-5, 1e-5, "16-round deposits")
+    k = cohort.ROUNDS_PER_LAUNCH if nodes == 1 else 1
+    assert cohort.cohort_round_launches[key] == n0 + 1 + len(
+        cohort.launch_rounds(16, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", VARIANTS)
+def test_closure_variant_autograd_on_card(name):
+    """run_cohort on the card with each closure variant carries a graph
+    (DiffableCohort: the variant's kernel forward, the plain rounds
+    backward): on tests/test_grad_closures.py's problem at 48 x 40 (the
+    real fluvial rules, exact zeros around a band), the gradient of
+    sum(G^2) w.r.t. the velocity field is finite, nonzero and equal to the
+    plain rounds' own autograd gradient at rtol 1e-5 / atol 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the cohort kernel has no CPU mode")
+    cl = CLOSURES[name]
+    rules = erosion.make_fluvial_rules(ErosionParams(), 0.1)
+    key = cohort.launch_key("fluvial", cl.nodes,
+                            cohort.kernel_variant(cl, cl.nodes).tag)
+
+    def grad(solve):
+        v = (0.4 * torch.ones((48, 40), device="cuda")).requires_grad_(True)
+        st, aux = band_problem(cl, v)
+        G = solve(st, aux)
+        return G.detach(), torch.autograd.grad((G * G).sum(), v)[0]
+
+    n0 = cohort.cohort_round_launches.get(key, 0)
+    G, got = grad(lambda s, a: cohort.run_cohort(s, a, rules, 4, 0.1, cl))
+    assert cohort.cohort_round_launches[key] > n0
+    G_p, want = grad(lambda s, a: cohort.cohort_advance_reference(
+        s, a, rules, 4, 0.1, closure=cl)[1])
+    assert bool(torch.isfinite(want).all()) and float(want.abs().max()) > 0
+    _close(G, G_p, 2e-5, 1e-5, "deposits")
+    _close(got, want, 1e-5, 1e-5, "velocity gradient")

@@ -27,7 +27,14 @@ from soillib_tpu_torch.models.simulation import erode_step
 from soillib_tpu_torch.ops import cohort, graph
 from soillib_tpu_torch.ops import graph_tiled as gt
 from tests.test_torch_cohort_schedule import PlainLaunches
-from tests.test_torch_cuda import LLEN, TOL, cohort_arrays, port_rules
+from tests.test_torch_cuda import CLOSURES as CUDA_CLOSURES
+from tests.test_torch_cuda import (
+    LLEN,
+    TOL,
+    band_problem,
+    cohort_arrays,
+    port_rules,
+)
 
 torch.set_num_threads(1)
 
@@ -77,30 +84,15 @@ def test_erosion_step_grad_matches_jax():
                                atol=1e-5 * float(np.abs(want).max()))
 
 
-CLOSURES = [soil.CohortClosure(), soil.CohortClosure(nodes=2),
-            soil.CohortClosure(nodes=4)]
+# Every closure of tests/test_grad_closures.py; the first three keep the
+# ids they had before the other variants were ported.
+CLOSURES = {name: CUDA_CLOSURES[name] for name in (
+    "default", "nodes2", "nodes4", "legacy", "offstep-off", "stream",
+    "all-on", "sign", "cluster", "speed")}
 
 
-def _closure_problem(closure, v):
-    """tests/test_grad_closures.py's state: weight on a diagonal band, the
-    rest EXACT zeros (still cells, dead streams, zero moments); for N
-    nodes the other nodes are exact-zero ensembles."""
-    W = H = 12
-    z = torch.zeros((W, H))
-    o = torch.ones((W, H))
-    ix = torch.arange(W)[:, None] - torch.arange(H)[None, :]
-    wgt = torch.where(ix.abs() <= 1, 1.0, 0.0)
-    st = [wgt, wgt * v, 0.3 * wgt * v, wgt * v * v, z, z,
-          0.5 * wgt, 0.5 * wgt, wgt / 3.0, wgt / 3.0,
-          wgt, 0.1 * wgt, wgt * v, z, 0.2 * wgt, 0.2 * wgt, 0.2 * wgt]
-    assert len(st) == cohort.NSTATE + 7
-    st = st + [z] * ((closure.nodes - 1) * len(st))
-    aux = [0.05 * o, -0.02 * o, o, -0.1 * o]
-    return torch.stack(st), torch.stack(aux)
-
-
-@pytest.mark.parametrize("closure", CLOSURES, ids=["default", "nodes2",
-                                                   "nodes4"])
+@pytest.mark.parametrize("closure", list(CLOSURES.values()),
+                         ids=list(CLOSURES))
 def test_cohort_grad_finite_for_every_ported_closure(closure):
     """The port's twin of tests/test_grad_closures.py for the closures it
     has: the gradient of sum(G^2) after 4 rounds with the real fluvial
@@ -108,7 +100,7 @@ def test_cohort_grad_finite_for_every_ported_closure(closure):
     with exact zeros."""
     rules = make_fluvial_rules(ErosionParams(), 0.1)
     v = (0.4 * torch.ones((12, 12))).requires_grad_(True)
-    st, aux = _closure_problem(closure, v)
+    st, aux = band_problem(closure, v)
     G = cohort.run_cohort(st, aux, rules, 4, 0.1, closure)
     (g,) = torch.autograd.grad(torch.sum(G ** 2), v)
     assert torch.isfinite(g).all(), f"non-finite gradient for {closure}"

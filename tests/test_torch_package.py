@@ -2,6 +2,7 @@
 do not fall back to the CPU, what it has not ported raises, and its CUDA
 wrapper refuses what the kernel cannot take."""
 
+import dataclasses
 import subprocess
 import sys
 
@@ -67,16 +68,19 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     ("node_rule", "sign"), ("node_rule", "cluster"),
 ])
 def test_non_default_closure_raises(field, value):
-    """The closure variants that are not ported raise; the node rules
-    other than "face" with nodes=4 (nodes and colors themselves are
-    ported: tests/test_torch_quality.py)."""
+    """Every closure variant runs (tests/test_torch_closures.py holds each
+    against the JAX package); what raises is what the JAX package refuses
+    too: the same variant with 3 nodes raises ValueError."""
     p = soil.ErosionParams()
     p.transportIterations = 2
     nodes = {"nodes": 4} if field == "node_rule" else {}
     p.closure = soil.CohortClosure(**{field: value}, **nodes)
     p.closureDebris = "same"
     st = soil.ErosionState.zeros((8, 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    out = soil.erode(st, (0.1, 0.1, 4.0), p)
+    assert bool(torch.isfinite(out.discharge).all())
+    p.closure = dataclasses.replace(p.closure, nodes=3)
+    with pytest.raises(ValueError, match="nodes"):
         soil.erode(st, (0.1, 0.1, 4.0), p)
 
 

@@ -62,7 +62,8 @@ def test_color_masks_match_jax(rule):
 
 
 @pytest.mark.parametrize("rule,nodes", [("face", 2), ("face", 4),
-                                        ("sign", 4)])
+                                        ("sign", 4), ("cluster", 4),
+                                        ("speed", 2)])
 def test_node_masks_match_jax(rule, nodes):
     sp = _speed(seed=1)
     got = port_erosion._node_masks(nodes, _t(sp), rule)

@@ -50,6 +50,7 @@ OUT = os.path.join(ROOT, "soillib_tpu_torch", "_build", "variants")
 NODES_MARK = "cohort_round_nodes_kernel(CohortParams p"
 ONE_MARK = "cohort_rounds_kernel(CohortParams p"
 CALL = "round_payloads<KIND, ALBEDO>(p, stv, auxv, pay);"
+CALL_N = "round_payloads<KIND, ALBEDO>(p, stv, auxv, pay, sh);"
 COPY = ("for (int c = 0; c < P; ++c) for (int d = 0; d < 4; ++d) "
         "pay[c][d] = stv[c] + auxv[d];")
 SKIP = " && p.Llen < 0.f"  # never true: the code stays, the work goes
@@ -61,7 +62,7 @@ VARIANTS = {
             (("EXCHANGE_CHANNELS", 1),)),
     "cl8": ([(None, "constexpr int CLN = 4;", "constexpr int CLN = 8;")],
             (("NODES_CLUSTER", 8),)),
-    "nophys": ([(NODES_MARK, CALL, COPY),
+    "nophys": ([(NODES_MARK, CALL_N, COPY),
                 (ONE_MARK, CALL, COPY.replace("< P", "< S"))], ()),
     "phys1": ([(ONE_MARK,
                 "#pragma unroll\n        for (int d = 0; d < 4; ++d)\n"
