@@ -31,7 +31,14 @@ split, offstep off and per stream, uniform streams with xmom and
 perstream; sign, cluster and speed node routing: each variant's library
 built at its first use, its kernels held against the plain round at
 512^2, its fluvial gradient against the plain path's, and two 4096^2
-coupled steps with the closure). Each path's kernel launches
+coupled steps with the closure), then the Monte-Carlo particle path
+(transportMethod="particles": a 4096^2 step with one particle a cell at
+127 rounds, the reference flagship's 256^2 / 8192 particles / 255
+rounds for 32 steps and held against the CPU with the same injected
+births, and dem_process --particles at 1024^2 with its tile-kernel calls
+bitwise) and the host utilities (a 4096^2 checkpoint round trip,
+prefetch of 16 GeoTIFF tiles through a side stream, the native
+library's build and LZW decode). Each path's kernel launches
 are counted from zero just before it runs and read just after; one more
 step of each erosion path, and one accumulate, is profiled by kernel.
 Every phase raises on failure. The last three lines of standard output are a JSON object
@@ -94,7 +101,7 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def terrain(n, seed):
+def terrain(n, seed, device="cuda"):
     """Smooth seeded terrain: bilinear-upsampled random octaves (numpy
     draws, upsampled on the card), height ~ 2 +- 0.5 as the golden tests
     use."""
@@ -102,12 +109,12 @@ def terrain(n, seed):
     import torch.nn.functional as F
 
     rng = np.random.default_rng(seed)
-    h = torch.zeros((n, n), dtype=torch.float32, device="cuda")
+    h = torch.zeros((n, n), dtype=torch.float32, device=device)
     amp, total = 1.0, 0.0
     for k in range(3, 9):  # 8^2 ... 256^2 control grids
         m = 2 ** k
         c = torch.from_numpy(rng.uniform(-1.0, 1.0, (1, 1, m, m))
-                             .astype(np.float32)).cuda()
+                             .astype(np.float32)).to(device)
         h += amp * F.interpolate(c, size=(n, n), mode="bilinear",
                                  align_corners=True)[0, 0]
         total += amp
@@ -2073,6 +2080,415 @@ def phase_variants():
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The Monte-Carlo particle path and the host utilities
+# ---------------------------------------------------------------------------
+
+
+def sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def profiled_idle(fn, what, rounds):
+    """fn() once under torch.profiler (device activity only): device busy
+    ms, wall ms, the idle share, kernels launched per transport round
+    (`rounds` in fn) and the four kernels with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy, kernels, by_kernel = 0.0, 0, []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = float(e.self_device_time_total) / 1e3
+        busy += ms
+        kernels += int(e.count)
+        by_kernel.append((ms, int(e.count), e.key[:60]))
+    if busy <= 0.0:
+        log(f"  {what}: the profiler recorded no device time: idle share "
+            f"not measured")
+        return {"wall_ms": wall_ms, "device_busy_ms": None,
+                "idle_share": None, "kernels_per_round": None}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": idle_share(busy, wall_ms, what),
+            "kernels_per_round": kernels / rounds,
+            "top_kernels_ms_count": sorted(by_kernel, reverse=True)[:4],
+            "profiler_s": time.perf_counter() - t_all}
+
+
+class Stopwatch:
+    """While active, module.name is timed on the host clock between
+    synchronises at each call (ms appended to `ms`)."""
+
+    def __init__(self, module, name, device):
+        self.module, self.name, self.device, self.ms = module, name, \
+            device, []
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def timed_call(*args, **kw):
+            sync(self.device)
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            sync(self.device)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(self.module, self.name, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def state_diff(a, b):
+    """Max abs difference over the fields of two states (NaN where one
+    field is NaN where the other is not)."""
+    import dataclasses
+
+    import torch
+
+    worst = 0.0
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if not torch.equal(torch.isfinite(x), torch.isfinite(y)):
+            return math.nan
+        fin = torch.isfinite(x)
+        if bool(fin.any()):
+            worst = max(worst, float((x[fin].double() - y[fin].double())
+                                     .abs().max()))
+    return worst
+
+
+# Phase 19(a)'s depth: maxage 128 (127 rounds a transport), cut from the
+# default 512 to keep the phase near 15 s; a round costs the same at any
+# depth (the particle arrays keep their size), so ms a round is the
+# number to scale by (PERF.md §6). The profiled steps of 19(a) and
+# 19(b) run maxage 33 (32 rounds): the profiler's processing takes ~0.15
+# ms a kernel on the host, ~20 s for a 127-round 4096^2 step.
+PARTICLE_MAXAGE = 128
+PROFILED_MAXAGE = 33
+
+
+def _with_maxage(p, maxage):
+    import copy
+
+    q = copy.copy(p)
+    q.maxage = maxage
+    return q
+
+
+def phase_particles_full_width(n=4096, maxage=PARTICLE_MAXAGE,
+                               device="cuda"):
+    """transportMethod="particles" at n^2 with one particle a cell
+    (nSamples = n^2), maxage `maxage` (maxage - 1 rounds a transport),
+    albedo on: one warm-up and one timed step from the same state with
+    the same seed (their largest difference printed: index_add_ on the
+    card is an atomic scatter), then one profiled step at 32 rounds.
+    Prints ms a step and a transport, peak memory and the idle share;
+    returns the timed step's state."""
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.core.device import seeded_generator
+    from soillib_tpu_torch.models import simulation
+
+    p = soil.ErosionParams()
+    p.transportMethod = "particles"
+    p.nSamples = n * n
+    p.maxage = maxage
+    p.trackAlbedo = True
+    state = soil.ErosionState.zeros((n, n), height=terrain(n, 7, device),
+                                    device=device)
+    erode = soil.make_erode_fn(p, (0.1, 0.1, 4.0))
+    N = p.nSamples
+    log(f"  memory reckoned: flux 7 x {n * n} x 4 B = "
+        f"{7 * n * n * 4 / 1e6:.0f} MB; particles {N} x ~60 B = "
+        f"{N * 60 / 1e9:.2f} GB (state, sources and one round's "
+        f"temporaries)")
+
+    def step(seed):
+        return erode(state, seeded_generator(device, seed))
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    first, ms_first = timed(lambda: step(11))
+    fl = Stopwatch(simulation, "transport_fluvial", device)
+    db = Stopwatch(simulation, "transport_debris", device)
+    with fl, db:
+        second, ms = timed(lambda: step(11))
+    finite_state(second, f"particles {n}^2")
+    diff = state_diff(first, second)
+    peak = (torch.cuda.max_memory_allocated() / 1e9
+            if torch.device(device).type == "cuda" else None)
+    rounds = max(p.maxage - 1, 0)
+    short = soil.make_erode_fn(_with_maxage(p, PROFILED_MAXAGE),
+                               (0.1, 0.1, 4.0))
+    prof = (profiled_idle(lambda: short(state, seeded_generator(device,
+                                                                12)),
+                          f"particles {n}^2 step", 2 * (PROFILED_MAXAGE - 1))
+            if torch.device(device).type == "cuda" else None)
+    out = {"n": n, "particles": N, "rounds": rounds,
+           "first_step_ms": ms_first, "step_ms": ms,
+           "fluvial_ms": fl.ms[0], "debris_ms": db.ms[0],
+           "fluvial_ms_per_round": fl.ms[0] / rounds,
+           "debris_ms_per_round": db.ms[0] / rounds,
+           "peak_gb": peak, "same_seed_max_abs_diff": diff,
+           "profiled": prof}
+    log(f"  {json.dumps(out)}")
+    return second, out
+
+
+def particle_step_checks(fields, device_a, device_b, maxage, draws):
+    """One flagship-configuration particle step from `fields` on two
+    devices with the same injected births; per cell (rtol 2e-5, atol
+    1e-6 of the field's largest finite magnitude) at maxage <= 16, else
+    each field's total (rtol 1e-4 of the sum of magnitudes), the CPU
+    tests' bars; the debris albedo times the debris mass. Returns the
+    worst error as a share of its allowance."""
+    from soillib_tpu_torch.testing import flagship_particle_step
+
+    outs = [flagship_particle_step(fields, dev, maxage, draws)
+            for dev in (device_a, device_b)]
+    worst = 0.0
+    for k in vars(outs[0]):
+        got = getattr(outs[0], k).cpu().numpy().astype(np.float64)
+        want = getattr(outs[1], k).cpu().numpy().astype(np.float64)
+        if k == "albedo_debris":
+            # A ratio of deposits, ill-conditioned where the debris mass
+            # is ~nothing: compare the albedo mass it stands for, as the
+            # CPU tests do.
+            got = got * outs[0].debris.cpu().numpy()
+            want = want * outs[1].debris.cpu().numpy()
+        fin = np.isfinite(want)
+        if not np.array_equal(np.isfinite(got), fin):
+            raise AssertionError(f"particle step {device_a} vs {device_b} "
+                                 f"maxage {maxage}: {k} non-finite "
+                                 f"elsewhere")
+        if maxage <= 16:
+            allow = 2e-5 * np.abs(want[fin]) + 1e-6 * np.abs(
+                want[fin]).max(initial=0.0)
+            err = np.abs(got[fin] - want[fin])
+        else:
+            mag = np.abs(want[fin]).sum()
+            allow = np.array([1e-4 * abs(want[fin].sum()) + 1e-4 * mag])
+            err = np.array([abs(got[fin].sum() - want[fin].sum())])
+        share = float((err / np.maximum(allow, 1e-300)).max(initial=0.0))
+        worst = max(worst, share)
+        if share > 1.0:
+            raise AssertionError(
+                f"particle step {device_a} vs {device_b} maxage {maxage}: "
+                f"{k} outside its bar ({share:.3f} of the allowance)")
+    return worst
+
+
+def phase_particles_flagship(res=256, steps=32, device="cuda"):
+    """The reference flagship's own configuration with particles
+    (examples/erosion_tpu.py: 256^2, nSamples 8192, maxage 256; the
+    example's terrain and world scale): one warm-up and `steps` timed
+    steps, one profiled step at 32 rounds (idle share, kernels a round);
+    then one
+    256^2 step on the card held against the same code on the CPU with
+    the same injected births, per cell at maxage 16 and by totals at
+    maxage 256."""
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.examples.erosion import make_param
+    from soillib_tpu_torch.testing import birth_draws, particle_state_fields
+
+    p = make_param()
+    p.transportMethod = "particles"
+    shape = (res, res)
+    pscale = (20.0 / res, 20.0 / res, 4.0)
+    h = soil.noise(shape, soil.noise_t(seed=3.0, ext=shape), device=device)
+    sim = soil.ErosionSim(shape, pscale, p, state=soil.ErosionState.zeros(
+        shape, height=h, device=device), device=device)
+    sim.step()
+    _, ms = timed(lambda: sim.step(steps))
+    finite_state(sim.state, f"particles flagship {res}^2")
+    rounds = max(p.maxage - 1, 0)
+    short = soil.make_erode_fn(_with_maxage(p, PROFILED_MAXAGE), pscale)
+    prof = (profiled_idle(lambda: short(sim.state, sim.key),
+                          f"particles flagship {res}^2 step",
+                          2 * (PROFILED_MAXAGE - 1))
+            if device == "cuda" else None)
+    fields = particle_state_fields(res, res, 5)
+    draws = birth_draws(p.nSamples, 2, 6)
+    cmp = {m: particle_step_checks(fields, device, "cpu", m, draws)
+           for m in (16, 256)}
+    out = {"res": res, "particles": p.nSamples, "rounds": rounds,
+           "steps": steps, "ms_per_step": ms / steps, "profiled": prof,
+           "card_vs_cpu_worst_share": cmp}
+    log(f"  {json.dumps(out)}")
+    return out
+
+
+def phase_dem_particles(n=1024, device="cuda"):
+    """`dem_process --particles` at n^2: the flow pipeline through the
+    tile kernels (their launches counted from zero, every call held
+    bitwise against plain), then solve_uniform(method="particles",
+    seed=0): n^2 particles, 2n - 1 rounds."""
+    import torch
+
+    from soillib_tpu_torch.examples import dem_process
+    from soillib_tpu_torch.ops import graph_tiled as gt
+    from soillib_tpu_torch.ops import sweep
+
+    argv = ["--res", str(n), "--out", "", "--particles", "--device", device]
+    zero_counts(gt.tile_launches, sweep.sweep_launches, sweep.sweep_rounds)
+    with Spy(gt, "local_fp_cuda") as loc, Spy(gt, "trace_cuda") as tr:
+        run, ms = timed(lambda: dem_process.main(argv))
+    launches = {"local": gt.tile_launches["local"],
+                "trace": gt.tile_launches["trace"],
+                "sweep": sweep.sweep_launches["round"]}
+    out = {"launches": launches, "main_ms": ms, "ops_ms": run["ms"]}
+    if device == "cuda":
+        if launches != {"local": 8, "trace": 4, "sweep": 0}:
+            raise AssertionError(f"dem_process --particles: launches "
+                                 f"{launches}")
+        errs = (tile_call_errs("dem_process --particles", "local",
+                               loc.calls)[0]
+                + tile_call_errs("dem_process --particles", "trace",
+                                 tr.calls)[0])
+        out["calls_checked_bitwise"] = {"local": len(loc.calls),
+                                        "trace": len(tr.calls),
+                                        "max_abs_err": max(errs)}
+    q = run["discharge"]
+    if tuple(q.shape) != (n, n) or not bool(torch.isfinite(q).all()) \
+            or not float(q.max()) > 0.0:
+        raise AssertionError("dem_process --particles: discharge not finite "
+                             "and positive")
+    log(f"  {json.dumps(out)}")
+    return out
+
+
+def phase_checkpoint(state, device="cuda"):
+    """save_checkpoint / load_checkpoint of a full-width state: the round
+    trip bitwise, and one field step (32 rounds) from the loaded state
+    bitwise equal to one from the live state."""
+    import tempfile
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.io.checkpoint import load_checkpoint, \
+        save_checkpoint
+
+    with tempfile.TemporaryDirectory() as d:
+        path, ms_save = timed(lambda: save_checkpoint(d, state, 1))
+        size = os.path.getsize(path)
+        back, ms_load = timed(lambda: load_checkpoint(d, state, 1))
+    for k, v in vars(state).items():
+        bitwise_err(f"checkpoint {k}", getattr(back, k), v)
+    p = soil.ErosionParams()
+    p.transportIterations = 32
+    live = soil.erode(state, (0.1, 0.1, 4.0), p)
+    again = soil.erode(back, (0.1, 0.1, 4.0), p)
+    for k, v in vars(live).items():
+        bitwise_err(f"step from the checkpoint {k}", getattr(again, k), v)
+    out = {"bytes": size, "save_ms": ms_save, "load_ms": ms_load}
+    log(f"  checkpoint of a {tuple(state.layers.shape[1:])} state: "
+        f"{json.dumps(out)}; round trip and the next step bitwise")
+    return out
+
+
+def phase_prefetch(n=1024, tiles=16, device="cuda"):
+    """prefetch over `tiles` GeoTIFF tiles of n^2 read through
+    util.iter_tiff (written here as phase 17 writes its tiles): order and
+    values checked on the device; the stream consumed with a gradient and
+    a reduction per tile, timed with the side stream (depth 2) and with a
+    plain synchronous copy per item (put=)."""
+    import tempfile
+
+    import torch
+
+    import soillib_tpu_torch as soil
+
+    def read(d):
+        for name, path in soil.util.iter_tiff(d):
+            yield name, soil.geotiff(path).numpy()
+
+    def consume(stream):
+        names, sums = [], []
+        for name, tile in stream:
+            names.append(name)
+            sums.append(soil.gradient(tile, (1.0, 1.0)).abs().sum())
+        return names, torch.stack(sums).cpu()
+
+    with tempfile.TemporaryDirectory() as d:
+        for i in range(tiles):
+            g = soil.geotiff(terrain(n, 60 + i, "cpu").numpy() * 400.0)
+            g.meta.scale = [1.0, 1.0, 1.0]
+            g.write(os.path.join(d, f"tile{i:02d}.tiff"))
+        host = list(read(d))
+        got = list(soil.prefetch(read(d), depth=2, device=device))
+        if [nm for nm, _ in got] != [nm for nm, _ in host]:
+            raise AssertionError("prefetch: tiles out of order")
+        for (nm, a), (_, want) in zip(got, host):
+            if a.device.type != torch.device(device).type or \
+                    not np.array_equal(a.cpu().numpy(), want):
+                raise AssertionError(f"prefetch: {nm} differs")
+        del got
+        (names_a, side), ms_side = timed(lambda: consume(
+            soil.prefetch(read(d), depth=2, device=device)))
+        (names_b, plain), ms_plain = timed(lambda: consume(
+            soil.prefetch(read(d), depth=2, put=lambda item: (
+                item[0], torch.from_numpy(item[1]).to(device)))))
+    if names_a != names_b or not torch.equal(side, plain):
+        raise AssertionError("prefetch: the side stream changed the result")
+    out = {"tiles": tiles, "n": n, "side_stream_ms": ms_side,
+           "plain_copy_ms": ms_plain}
+    log(f"  prefetch of {tiles} GeoTIFF tiles of {n}^2: {json.dumps(out)}")
+    return out
+
+
+def phase_native(n=256, seed=43):
+    """Whether the native library was built and is used (the build's
+    error on a line of its own if not), and the decode time of an LZW
+    tile (n^2 float32) through the codec's strip decoder against the
+    pure-Python decoder."""
+    from soillib_tpu_torch import native
+    from soillib_tpu_torch.io import tiffcore
+    from soillib_tpu_torch.testing import lzw_encode
+
+    raw = (terrain(n, seed, "cpu").numpy() * 400.0).astype(np.float32)
+    raw = np.round(raw).tobytes()  # a DEM of whole metres compresses
+    enc = lzw_encode(raw)
+    out = {"available": native.available(), "tile_bytes": len(raw),
+           "lzw_bytes": len(enc)}
+    if not out["available"]:
+        log(f"native library: build FAILED ({native.build_error()}); the "
+            f"codec and the mesh run their Python paths")
+    t0 = time.perf_counter()
+    dec = tiffcore._decompress(enc, 5, len(raw))
+    out["codec_decode_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    py = tiffcore._unpack_lzw(enc)
+    out["python_decode_ms"] = (time.perf_counter() - t0) * 1e3
+    if dec != raw or py != raw:
+        raise AssertionError("LZW decode differs from the tile")
+    if out["available"]:
+        calls = []
+        with Spy(tiffcore, "_unpack_lzw") as sp:
+            tiffcore._decompress(enc, 5, len(raw))
+            calls = sp.calls
+        out["codec_used_native"] = not calls
+        if calls:
+            raise AssertionError("the codec fell back to Python with the "
+                                 "native library loaded")
+    log(f"  native library: {json.dumps(out)}")
+    return out
+
+
 def main():
     import torch
 
@@ -2220,6 +2636,34 @@ def main():
     t18 = time.perf_counter()
     entries += phase_variants()
     log(f"  phase 18 took {time.perf_counter() - t18:.1f} s")
+
+    torch.cuda.empty_cache()
+    t19 = time.perf_counter()
+    log("phase 19: the Monte-Carlo particle path (transportMethod="
+        "\"particles\"; dem_process --particles)")
+    log(f"  (a) erosion step 4096^2, 16,777,216 particles, "
+        f"{PARTICLE_MAXAGE - 1} rounds (cut from 511)")
+    part_state, _ = phase_particles_full_width()
+    log("  (b) the flagship configuration 256^2, 8192 particles, 255 "
+        "rounds, 32 steps")
+    phase_particles_flagship()
+    log("  (c) dem_process --particles 1024^2 (1,048,576 particles, 2047 "
+        "rounds)")
+    dem_part = phase_dem_particles()
+    for kind in ("local", "trace"):
+        by_name[f"tile_{kind}"]["launches_by_path"][
+            "dem_process --particles"] = dem_part["launches"][kind]
+    log(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
+
+    t20 = time.perf_counter()
+    log("phase 20: host utilities (checkpoint 4096^2, prefetch of 16 "
+        "GeoTIFF tiles of 1024^2, the native library)")
+    phase_checkpoint(part_state)
+    del part_state
+    torch.cuda.empty_cache()
+    phase_prefetch()
+    phase_native()
+    log(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
 
     # The round bounds weigh exp, division and sqrt by the probe's costs.
     costs = probe["fp32"]["costs"]

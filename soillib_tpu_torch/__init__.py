@@ -20,7 +20,7 @@ Entry points run on the card unless the caller passes `device="cpu"`
 device. The headline bench runs as `python -m soillib_tpu_torch.bench`;
 the examples as `python -m soillib_tpu_torch.examples.<name>` (erosion,
 multiscale, dem_process, dem_condition, dem_multiflow and the tiff_*
-scripts).
+scripts). Sharded execution (`parallel`) is not ported yet.
 """
 
 from soillib_tpu_torch.core.grid import (
@@ -34,6 +34,7 @@ from soillib_tpu_torch.core.grid import (
     unflatten,
 )
 from soillib_tpu_torch.core import metrics, morton
+from soillib_tpu_torch.core.yieldgen import make_yield, prefetch, yield_t
 from soillib_tpu_torch.core.timer import ms, ns, profile, s, timer, us
 from soillib_tpu_torch.models.params import ErosionParams, param_t
 from soillib_tpu_torch.models.erosion import (
@@ -77,7 +78,7 @@ from soillib_tpu_torch.ops.transport import solve_uniform
 from soillib_tpu_torch.io.tiff import tiff
 from soillib_tpu_torch.io.geotiff import geotiff, geotiff_meta
 from soillib_tpu_torch.io.mesh import mesh
-from soillib_tpu_torch import util
+from soillib_tpu_torch import silt, util
 
 # Reference-compatible edge-connectivity enumerators (graph.hpp:11-14).
 d4 = D4
@@ -87,7 +88,8 @@ __all__ = [
     "D4", "D8", "d4", "d8", "D4_SHIFTS", "D8_SHIFTS",
     "Shape", "flatten", "unflatten", "oob",
     "timer", "profile", "ns", "us", "ms", "s",
-    "metrics", "morton",
+    "yield_t", "make_yield", "prefetch",
+    "metrics", "morton", "silt",
     "gradient", "negslope", "laplacian", "normal",
     "gaussian_blur",
     "steepest", "direction", "random_weighted", "slope",

@@ -28,3 +28,13 @@ def as_field(x, device=None, dtype=torch.float32) -> torch.Tensor:
     if not a.flags.writeable:  # torch warns on read-only numpy memory
         a = a.copy()
     return torch.as_tensor(a, dtype=dtype, device=_device(device or "cuda"))
+
+
+def seeded_generator(device, seed: int = 0, offset: int = 0):
+    """A torch.Generator on `device` seeded from (seed, offset) as
+    `(seed << 32) | offset` (each taken mod 2^32): the port's stand-in for
+    the JAX package's `fold_in(PRNGKey(seed), offset)` keys and the
+    reference's curand_init(seed, n, offset) streams. Deterministic in
+    (seed, offset); not the same numbers as either."""
+    return torch.Generator(device=_device(device)).manual_seed(
+        ((int(seed) & 0xFFFFFFFF) << 32) | (int(offset) & 0xFFFFFFFF))

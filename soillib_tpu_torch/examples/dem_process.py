@@ -15,8 +15,10 @@ the flow pipeline (steepest and both accumulations) is warmed by one
 untimed call and then timed; the sweep is warmed by a one-round solve on
 the same shape (the first launch in a process builds the kernels); fill,
 gradient and the solve are timed once.
-`--particles` asks for the Monte-Carlo solve, which is not ported and
-raises. `--out ""` skips the plot; any other --out needs matplotlib.
+`--particles` solves with the Monte-Carlo estimator instead
+(`solve_uniform(method="particles", seed=0)`: W*H particles, W+H-1
+rounds of plain torch, nothing to build or warm). `--out ""` skips the
+plot; any other --out needs matplotlib.
 """
 
 from __future__ import annotations
@@ -94,7 +96,8 @@ def main(argv=None) -> dict:
     f["gradient"] = op("gradient",
                        lambda: soil.gradient(f["height"], scale[:2]))
     velocity = velocity_of(f["gradient"])
-    solve(velocity, iterations=1)  # builds the sweep kernel
+    if method == "field":
+        solve(velocity, iterations=1)  # builds the sweep kernel
     f["discharge"] = op("solve_uniform", lambda: solve(velocity))
     print(f"ops on {tuple(height.shape)} [ms]: "
           + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()), flush=True)

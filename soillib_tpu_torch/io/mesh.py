@@ -3,20 +3,34 @@
 
 NaN-skipping vertex insertion with index remap, two triangles per quad,
 min/max height normalization, `center()`, ascii (`write`) and binary
-(`write_binary`) output, vectorized with numpy on the host. Heights may
-be arrays or tensors on any device. The files are the same bytes as the
-JAX package's numpy writer's.
+(`write_binary`) output on the host. Heights may be arrays or tensors on
+any device. As in the JAX package, the triangulation and the binary
+writer run in the native library (`soillib_tpu_torch.native`: the two
+triangles of a quad interleaved, as the reference emits them) where it
+builds, else vectorized with numpy (the triangles batched); the numpy
+path's files are the same bytes as the JAX package's numpy writer's.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from soillib_tpu_torch import native
 from soillib_tpu_torch.io.tiff import _host
 
 # One binary face record: the vertex count and three vertex indices,
 # little-endian and packed (13 bytes).
 _FACE = np.dtype([("n", "<u1"), ("a", "<i4"), ("b", "<i4"), ("c", "<i4")])
+
+
+def _native_triangulate(h, scale):
+    """The native triangulation; None falls back to numpy."""
+    return native.triangulate(h, scale)
+
+
+def _native_ply(path, vertices, faces):
+    """The native binary PLY writer; False falls back to numpy."""
+    return native.ply_write(path, vertices, faces, binary=True)
 
 
 class mesh:
@@ -28,6 +42,10 @@ class mesh:
                               scale)
 
     def _triangulate(self, h: np.ndarray, scale):
+        out = _native_triangulate(h, scale)
+        if out is not None:
+            self.vertices, self.faces = out
+            return
         W, H = h.shape
         sx, sy, sz = float(scale[0]), float(scale[1]), float(scale[2])
 
@@ -80,6 +98,8 @@ class mesh:
 
     def write_binary(self, filename: str) -> bool:
         """Binary little-endian PLY: the faces as one packed record array."""
+        if _native_ply(filename, self.vertices, self.faces):
+            return True
         faces = np.empty(len(self.faces), _FACE)
         faces["n"] = 3
         faces["a"], faces["b"], faces["c"] = np.asarray(self.faces).T

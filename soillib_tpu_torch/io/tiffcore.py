@@ -1,6 +1,8 @@
 """Minimal self-contained TIFF codec (numpy in/out); a copy of
-`soillib_tpu/io/tiffcore.py` with its pure-Python decoders only (the JAX
-package's native LZW/PackBits decode path is not ported).
+`soillib_tpu/io/tiffcore.py`. LZW and PackBits strips decode through the
+native library (`soillib_tpu_torch.native`, the port's copy of the JAX
+package's C++ decoders) where it builds, else through the pure-Python
+decoders here, which also name the fault of a malformed stream.
 
 Replaces the reference's libtiff dependency (io/tiff.hpp) for the formats a
 DEM pipeline needs:
@@ -22,6 +24,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from soillib_tpu_torch import native
 
 # TIFF data types -> (struct fmt, bytes)
 _TYPES = {
@@ -146,9 +150,11 @@ def _decompress(data: bytes, compression: int, expected: int) -> bytes:
     if compression in (8, 32946):  # Deflate / old deflate
         return zlib.decompress(data)
     if compression == 5:
-        return _unpack_lzw(data)
+        out = native.lzw_decode(data, expected)
+        return out if out is not None else _unpack_lzw(data)
     if compression == 32773:
-        return _unpack_packbits(data, expected)
+        out = native.packbits_decode(data, expected)
+        return out if out is not None else _unpack_packbits(data, expected)
     raise ValueError(f"unsupported TIFF compression: {compression}")
 
 

@@ -18,7 +18,11 @@ import dataclasses
 import torch
 
 from soillib_tpu_torch.models.params import ErosionParams
-from soillib_tpu_torch.models.simulation import ErosionState, make_erode_fn
+from soillib_tpu_torch.models.simulation import (
+    ErosionState,
+    _particle_key,
+    make_erode_fn,
+)
 from soillib_tpu_torch.ops.resize import resize
 
 
@@ -75,8 +79,10 @@ def run_cascade(
       zscale: height dimensionalization (scale.z).
       param: erosion parameters (shared; the per-level pscale is what makes
         coarse levels advance more geological time per cell).
-      key: a torch.Generator or None, passed to every level's `erode` (the
-        field transports draw no random numbers).
+      key: a torch.Generator on the state's device or None (one seeded
+        from 0 where the particle transports need it), passed on unchanged
+        to every level's steps, which draw from it in turn (the JAX
+        package splits its key once a level).
       mesh: sharded execution is not ported; anything but None raises.
       on_level: optional callback(level_index, resolution, state) after
         each level, for checkpointing/plotting.
@@ -88,6 +94,7 @@ def run_cascade(
             "run_cascade(mesh=...) needs sharded execution, which is not "
             "ported yet (ROADMAP queue A item 9); run with mesh=None on "
             "one device")
+    key = _particle_key(key, state, param)
     for idx, (res, steps) in enumerate(levels):
         res = (int(res[0]), int(res[1]))
         # The resolution comes from the layers: rainfall and uplift may be

@@ -21,7 +21,7 @@ import dataclasses
 
 import torch
 
-from soillib_tpu_torch.core.device import _device
+from soillib_tpu_torch.core.device import _device, seeded_generator
 from soillib_tpu_torch.core.halo import NO_HALO
 from soillib_tpu_torch.models.erosion import (
     mass_creep,
@@ -130,13 +130,27 @@ class ErosionState:
         )
 
 
+def _particle_key(key, state: ErosionState, param: ErosionParams):
+    """`key` itself, or, where the particle transports need one and none
+    was given, a generator on the state's device seeded from 0 (the JAX
+    package's PRNGKey(0))."""
+    if key is None and param.transportMethod == "particles":
+        return seeded_generator(state.device)
+    return key
+
+
 def erode_step(
     state: ErosionState, scale, param: ErosionParams, key=None, halo=NO_HALO
 ) -> ErosionState:
-    """One coupled erosion step. `key` (a torch.Generator or None) is not
-    used by the field transports, as in the JAX package."""
+    """One coupled erosion step. `key` is a torch.Generator on the state's
+    device, or None (one seeded from 0). The field transports draw
+    nothing from it; the particle transports draw their births from it,
+    fluvial first, then debris. The JAX step splits its key into one for
+    each solve; a torch.Generator advances as it draws, so drawing from
+    the one generator in program order is the counterpart."""
     p = param
     lr = p.lrate
+    key = _particle_key(key, state, p)
 
     dis, mas, mom, alb_f = transport_fluvial(
         state.layers, state.rainfall, state.discharge, state.mass,
@@ -199,13 +213,17 @@ def _canonicalize(state: ErosionState, param: ErosionParams) -> ErosionState:
 def make_erode_fn(param: ErosionParams, scale, steps: int = 1):
     """Erosion driver: fn(state, key=None) -> state after `steps` coupled
     steps. The parameters and scale are captured as they are now (the JAX
-    driver compiles them in); later edits of `param` do not reach fn."""
+    package compiles them in); later edits of `param` do not reach fn.
+    `key` (a torch.Generator on the state's device, or None: one seeded
+    from 0) serves every step in turn, as the JAX package's
+    make_erode_fn splits its key once a step."""
     param = ErosionParams.from_frozen(param.freeze())
     scale = tuple(float(s) for s in scale)
     steps = int(steps)
 
     def fn(state, key=None):
         state = _canonicalize(state, param)
+        key = _particle_key(key, state, param)
         for _ in range(steps):
             state = erode_step(state, scale, param, key)
         return state
@@ -235,9 +253,10 @@ class ErosionSim:
         self.param = param or ErosionParams()
         self.state = (state if state is not None
                       else ErosionState.zeros(shape, device=device))
-        # The field transports draw no random numbers; the generator keeps
-        # the JAX driver's key argument in place for the particle methods.
-        self.key = torch.Generator().manual_seed(int(seed))
+        # The particle transports draw from it (on the state's device);
+        # it advances from step to step as the JAX package's ErosionSim
+        # splits its key.
+        self.key = seeded_generator(self.state.device, int(seed))
 
     def step(self, n: int = 1):
         self.state = make_erode_fn(self.param, self.scale, steps=n)(

@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from soillib_tpu_torch.core.device import as_field
+from soillib_tpu_torch.core.device import as_field, seeded_generator
 from soillib_tpu_torch.core.grid import D4, D8, shift_lengths, shifts_for
 from soillib_tpu_torch.core.halo import NO_HALO
 from soillib_tpu_torch.ops.stencil import _shift
@@ -127,8 +127,7 @@ def random_weighted(height, edge: int = D8, seed: int = 0, offset: int = 0,
 
     if u is None:
         if generator is None:
-            generator = torch.Generator(device=h.device).manual_seed(
-                ((int(seed) & 0xFFFFFFFF) << 32) | (int(offset) & 0xFFFFFFFF))
+            generator = seeded_generator(h.device, seed, offset)
         u = torch.rand(tuple(h.shape), generator=generator,
                        device=generator.device, dtype=h.dtype).to(h.device)
     else:

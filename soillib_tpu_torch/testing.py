@@ -1,10 +1,14 @@
-"""Seeded cohort problems shared by the port's tests and `chip_smoke.py`:
-the closures of the JAX package's gradient tests by name, the JAX kernel
-tests' seeded cohort state, its split over a closure's nodes, and the
-band problem of the gradient tests. Imports numpy and torch only.
+"""Seeded problems shared by the port's tests and `chip_smoke.py`: the
+closures of the JAX package's gradient tests by name, the JAX kernel
+tests' seeded cohort state, its split over a closure's nodes, the band
+problem of the gradient tests, for the particle estimators a seeded
+mid-run erosion state and births injected in place of the generator's,
+and an LZW encoder for the decoders. Imports numpy and torch only.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -97,3 +101,129 @@ def band_problem(closure, v):
     st = st + [z] * ((closure.nodes - 1) * len(st))
     aux = [0.05 * o, -0.02 * o, o, -0.1 * o]
     return torch.stack(st), torch.stack(aux)
+
+
+def particle_state_fields(W, H, seed):
+    """A seeded mid-run erosion state as float32 numpy arrays keyed by the
+    ErosionState field names: rough terrain (slopes on both sides of the
+    landslide threshold), water, sediment, debris, momentum, albedos."""
+    rng = np.random.default_rng(seed)
+
+    def f(*s):
+        return rng.normal(size=s).astype(np.float32)
+
+    def u(*s):
+        return rng.uniform(size=s).astype(np.float32)
+
+    bed = 2.0 + 0.05 * np.cumsum(np.cumsum(f(W, H), axis=0), axis=1)
+    return dict(
+        layers=np.stack([bed, np.abs(f(W, H)) * 0.01]),
+        rainfall=np.ones((W, H), np.float32),
+        uplift=u(W, H),
+        discharge=np.abs(f(W, H)),
+        mass=np.abs(f(W, H)) * 1e-6,
+        momentum=f(2, W, H) * 0.1,
+        debris=np.abs(f(W, H)) * 1e-3,
+        debris_momentum=f(2, W, H) * 0.1,
+        albedo_bedrock=u(3, W, H),
+        albedo_surface=u(3, W, H),
+        albedo_fluvial=u(3, W, H),
+        albedo_debris=u(3, W, H),
+    )
+
+
+def birth_draws(n, count, seed):
+    """`count` seeded (ux, uy) pairs of n float32 uniforms in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    return [(rng.random(n, dtype=np.float32), rng.random(n, dtype=np.float32))
+            for _ in range(count)]
+
+
+@contextlib.contextmanager
+def injected_births(draws):
+    """While active, the particle estimators take their births' uniforms
+    from `draws` ((ux, uy) numpy pairs, one pair a solve, in order) on the
+    device they ask for, instead of from their generator. Yields the list
+    of pairs not taken yet."""
+    from soillib_tpu_torch.ops import transport
+
+    queue = list(draws)
+    real = transport._birth_uniforms
+
+    def births(n, generator, device):
+        ux, uy = queue.pop(0)
+        if len(ux) != n:
+            raise ValueError(f"injected {len(ux)} births, the solve asks "
+                             f"for {n}")
+        return (torch.from_numpy(ux).to(device),
+                torch.from_numpy(uy).to(device))
+
+    transport._birth_uniforms = births
+    try:
+        yield queue
+    finally:
+        transport._birth_uniforms = real
+
+
+def flagship_particle_step(fields, device, maxage, draws):
+    """One coupled step of the reference flagship's configuration with
+    transportMethod="particles" (examples/erosion.py `make_param`:
+    nSamples 8192; a 20 km world) and `maxage`, from `fields`
+    (`particle_state_fields`) on `device`, the births' uniforms taken
+    from `draws` (one pair a transport)."""
+    from soillib_tpu_torch.convert import state_from_numpy
+    from soillib_tpu_torch.examples.erosion import make_param
+    from soillib_tpu_torch.models.simulation import erode_step
+
+    p = make_param()
+    p.transportMethod, p.maxage = "particles", maxage
+    W, H = fields["discharge"].shape
+    with injected_births(draws) as left:
+        out = erode_step(state_from_numpy(fields, device),
+                         (20.0 / W, 20.0 / H, 4.0), p)
+    if left:
+        raise AssertionError(f"{len(left)} injected births not taken")
+    return out
+
+
+def lzw_encode(data: bytes) -> bytes:
+    """Minimal TIFF-variant LZW encoder (MSB-first, early change), as
+    the JAX package's tests/test_native.py has it: a test oracle only
+    (the port's codec writes uncompressed TIFFs)."""
+    CLEAR, EOI = 256, 257
+    out = bytearray()
+    bitbuf = bitcnt = 0
+
+    def put(code, width):
+        nonlocal bitbuf, bitcnt
+        bitbuf = (bitbuf << width) | code
+        bitcnt += width
+        while bitcnt >= 8:
+            out.append((bitbuf >> (bitcnt - 8)) & 0xFF)
+            bitcnt -= 8
+
+    table = {bytes([i]): i for i in range(256)}
+    nxt, width = 258, 9
+    put(CLEAR, width)
+    w = b""
+    for ch in data:
+        c = bytes([ch])
+        if w + c in table:
+            w = w + c
+            continue
+        put(table[w], width)
+        table[w + c] = nxt
+        nxt += 1
+        if nxt == (1 << width) and width < 12:
+            width += 1
+        if nxt >= 4094:
+            put(CLEAR, width)
+            table = {bytes([i]): i for i in range(256)}
+            nxt, width = 258, 9
+        w = c
+    if w:
+        put(table[w], width)
+    put(EOI, width)
+    if bitcnt:
+        out.append((bitbuf << (8 - bitcnt)) & 0xFF)
+    return bytes(out)

@@ -18,7 +18,9 @@ bitwise where the kernel keeps the plain summation order (one-node solves
 at any rounds per launch, colored solves, one N-node round). Sweep
 (SWEEP_K rounds a launch) and tile kernels: bitwise against their plain
 versions; whole tiled accumulations at rtol 1e-5 (phase 3's index_add
-uses atomics).
+uses atomics). The particle estimators and the host utilities have no
+kernel: their cases run the plain torch code on CUDA tensors, held
+against the CPU at the CPU tests' bars.
 """
 
 import math
@@ -929,3 +931,108 @@ def test_closure_variant_autograd_on_card(name):
     assert bool(torch.isfinite(want).all()) and float(want.abs().max()) > 0
     _close(G, G_p, 2e-5, 1e-5, "deposits")
     _close(got, want, 1e-5, 1e-5, "velocity gradient")
+
+
+# ---------------------------------------------------------------------------
+# The particle estimators and the host utilities on the card (no kernel of
+# their own: plain torch on CUDA tensors)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("maxage", [16, 256])
+def test_particle_step_on_card_equals_the_cpu(maxage):
+    """The same injected births on the card and the CPU: per cell at the
+    CPU tests' bar (rtol 2e-5, atol 1e-6 of each field's largest finite
+    magnitude) at 15 rounds; at the full 255 rounds, where a last-bit
+    difference can move a particle to another cell, each field's total
+    at rtol 1e-4 (of the sum of magnitudes). The debris albedo times the
+    debris mass."""
+    _needs_card()
+    from soillib_tpu_torch.testing import (
+        birth_draws,
+        flagship_particle_step,
+        particle_state_fields,
+    )
+
+    fields = particle_state_fields(256, 256, 5)
+    draws = birth_draws(8192, 2, 6)
+    card = flagship_particle_step(fields, "cuda", maxage, draws)
+    cpu = flagship_particle_step(fields, "cpu", maxage, draws)
+    assert card.layers.device.type == "cuda"
+    for k, v in vars(cpu).items():
+        want, got = v.numpy(), getattr(card, k).cpu().numpy()
+        if k == "albedo_debris":
+            # A ratio of deposits: the albedo mass it stands for, as the
+            # CPU tests compare it.
+            want, got = want * cpu.debris.numpy(), \
+                got * card.debris.cpu().numpy()
+        fin = np.isfinite(want)
+        np.testing.assert_array_equal(np.isfinite(got), fin, err_msg=k)
+        if maxage <= 16:
+            np.testing.assert_allclose(
+                got, want, rtol=2e-5,
+                atol=1e-6 * float(np.abs(want[fin]).max(initial=0.0)),
+                err_msg=k)
+        else:
+            mag = float(np.abs(want[fin].astype(np.float64)).sum())
+            np.testing.assert_allclose(
+                got[fin].astype(np.float64).sum(),
+                want[fin].astype(np.float64).sum(), rtol=1e-4,
+                atol=1e-4 * mag, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_particle_generators_live_on_the_card():
+    _needs_card()
+    from soillib_tpu_torch.core.device import seeded_generator
+
+    p = ErosionParams()
+    p.transportMethod, p.nSamples, p.maxage = "particles", 1024, 16
+    sim = soil.ErosionSim((32, 32), (0.1, 0.1, 4.0), p, seed=3)
+    assert sim.key.device.type == "cuda"
+    assert bool(torch.isfinite(sim.step().height).all())
+    with pytest.raises(ValueError, match="generator"):
+        soil.erode(sim.state, (0.1, 0.1, 4.0), p,
+                   key=seeded_generator("cpu"))
+    flow = torch.randn(24, 16, 2, device="cuda")
+    ones = torch.ones(24, 16, device="cuda")
+    a = soil.solve_uniform(flow, ones, ones * 0.1, method="particles",
+                           seed=2, offset=1)
+    b = soil.solve_uniform(flow, ones, ones * 0.1, method="particles",
+                           seed=2, offset=1)
+    assert a.device.type == "cuda" and bool(torch.isfinite(a).all())
+    _close(a, b, 1e-5, 1e-6 * float(a.abs().max()), "same stream")
+
+
+@pytest.mark.cuda
+def test_prefetch_on_card_streams_in_order():
+    _needs_card()
+    items = [(f"t{i}", np.full((64, 48), i, np.float32)) for i in range(7)]
+    got = list(soil.prefetch(iter(items), depth=3))
+    assert [n for n, _ in got] == [n for n, _ in items]
+    for (_, a), (_, want) in zip(got, items):
+        assert a.device.type == "cuda" and a.dtype == torch.float32
+        np.testing.assert_array_equal(a.cpu().numpy(), want)
+    sums = [float((a * 2.0).sum()) for _, a in
+            soil.prefetch(iter(items), depth=1)]
+    assert sums == [2.0 * i * 64 * 48 for i in range(7)]
+
+
+@pytest.mark.cuda
+def test_checkpoint_on_card_round_trip(tmp_path):
+    _needs_card()
+    from soillib_tpu_torch.io.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    h = torch.rand(64, 48, device="cuda")
+    st = soil.ErosionState.zeros((64, 48), height=h, rainfall=2.0)
+    save_checkpoint(str(tmp_path), st, 7)
+    back = load_checkpoint(str(tmp_path), st, 7)
+    on_cpu = load_checkpoint(str(tmp_path), st, 7, device="cpu")
+    for k, v in vars(st).items():
+        assert getattr(back, k).device.type == "cuda", k
+        assert torch.equal(getattr(back, k), v), k
+        assert torch.equal(getattr(on_cpu, k), v.cpu()), k

@@ -74,10 +74,21 @@ def test_dem_process_fields_equal_the_ops():
     assert float(run["discharge"].abs().max()) > 0.0
 
 
-def test_dem_process_particles_raises():
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        dem_process.main(["--res", "16", "--device", "cpu", "--out", "",
-                          "--particles"])
+def test_dem_process_particles_runs():
+    """--particles solves with solve_uniform(method="particles", seed=0)
+    after the same flow pipeline (the same seed: bitwise); the fields
+    before the solve are the field run's."""
+    argv = ["--res", "16", "--device", "cpu", "--out", ""]
+    run = dem_process.main(argv + ["--particles"])
+    field = dem_process.main(argv)
+    for k in ("height", "flow", "area", "decayed", "gradient"):
+        assert torch.equal(run[k], field[k]), k
+    h = run["height"]
+    want = soil.solve_uniform(
+        dem_process.velocity_of(run["gradient"]), torch.ones_like(h),
+        torch.full_like(h, 0.001), (90.0, 90.0), method="particles", seed=0)
+    assert torch.equal(run["discharge"], want)
+    assert bool(torch.isfinite(want).all()) and float(want.max()) > 0.0
 
 
 def test_dem_condition_drains_every_interior_cell():

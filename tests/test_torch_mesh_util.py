@@ -1,9 +1,10 @@
 """The port's `mesh` (triangulation and PLY writers) and `util`
 (`iter_tiff`, the plotting helpers) against the JAX package on the CPU.
-The mesh's vertices and faces equal the JAX package's numpy
+On their numpy paths (both packages' native libraries switched off here)
+the mesh's vertices and faces equal the JAX package's numpy
 triangulation's and its files are the same bytes as the JAX package's
-numpy writer's (the JAX package's native library, when it builds, is
-switched off here: the port does not use it)."""
+numpy writer's. The port's native path is held against its numpy path
+in tests/test_torch_host_utils.py."""
 
 import importlib
 import os
@@ -16,14 +17,17 @@ import torch
 import soillib_tpu_torch as soil
 
 jmesh = importlib.import_module("soillib_tpu.io.mesh")
+pmesh = importlib.import_module("soillib_tpu_torch.io.mesh")
 torch.set_num_threads(1)
 
 
 @pytest.fixture
 def jax_numpy_mesh(monkeypatch):
-    """The JAX package's mesh on its numpy path."""
+    """The JAX package's mesh on its numpy path (and the port's)."""
     monkeypatch.setattr(jmesh, "_native_triangulate", lambda h, s: None)
     monkeypatch.setattr(jmesh, "_native_ply", lambda *a, **k: False)
+    monkeypatch.setattr(pmesh, "_native_triangulate", lambda h, s: None)
+    monkeypatch.setattr(pmesh, "_native_ply", lambda *a: False)
     return jmesh.mesh
 
 

@@ -41,12 +41,11 @@ def test_import_pulls_in_no_jax():
 
 def test_public_surface_matches_the_jax_package_but_the_queued_names():
     """Every name of the JAX package's `__all__` is exported by the port,
-    except the ones still queued (ROADMAP queue A items 7 and 9)."""
+    except the one still queued (ROADMAP queue A item 9)."""
     import soillib_tpu
 
     missing = set(soillib_tpu.__all__) - set(soil.__all__)
-    assert missing == {"yield_t", "make_yield", "prefetch", "silt",
-                       "parallel"}
+    assert missing == {"parallel"}
     for name in soil.__all__:
         assert hasattr(soil, name), name
 
@@ -84,13 +83,18 @@ def test_non_default_closure_raises(field, value):
         soil.erode(st, (0.1, 0.1, 4.0), p)
 
 
-@pytest.mark.parametrize("method", ["particles"])
-def test_unported_transport_methods_raise(method):
+def test_particles_transport_method_runs():
+    """transportMethod="particles" runs both Monte-Carlo estimators on the
+    CPU and keeps the state finite; the transported fields are nonzero."""
     p = soil.ErosionParams()
-    p.transportMethod = method
-    st = soil.ErosionState.zeros((8, 8), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        soil.erode(st, (0.1, 0.1, 4.0), p)
+    p.transportMethod = "particles"
+    p.nSamples, p.maxage = 256, 12
+    h = torch.linspace(0.0, 1.0, 64).reshape(8, 8)
+    st = soil.ErosionState.zeros((8, 8), height=h, device="cpu")
+    out = soil.erode(st, (0.1, 0.1, 4.0), p, steps=2)
+    for k in ("height", "discharge", "momentum", "debris"):
+        assert bool(torch.isfinite(getattr(out, k)).all()), k
+    assert float(out.discharge.abs().max()) > 0.0
 
 
 def test_field_static_erode_runs():

@@ -189,9 +189,25 @@ def test_solve_uniform_layout_and_method_errors():
     with pytest.raises(ValueError, match="channel-LAST"):
         soil.solve_uniform(np.moveaxis(flow, -1, 0), ones, ones,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown method"):
+        soil.solve_uniform(flow, ones, ones, method="walkers", device="cpu")
+
+
+def test_particles_refuse_a_sharded_halo():
+    """The particle estimators are single-device, as in the JAX package:
+    any halo but NO_HALO raises."""
+    flow, _ = _flow_problem(12, 8, 8)
+    ones = np.ones((8, 8), np.float32)
+    with pytest.raises(NotImplementedError, match="single-device"):
         soil.solve_uniform(flow, ones, ones, method="particles",
-                           device="cpu")
+                           halo=object(), device="cpu")
+    p = soil.ErosionParams()
+    p.transportMethod = "particles"
+    st = soil.ErosionState.zeros((8, 8), device="cpu")
+    with pytest.raises(NotImplementedError, match="sharded halo"):
+        soil.transport_debris(st.layers, st.debris, st.debris_momentum,
+                              st.albedo_surface, (0.1, 0.1, 4.0), p,
+                              halo=object())
 
 
 def test_stepsize_matches_jax():
