@@ -38,7 +38,19 @@ rounds for 32 steps and held against the CPU with the same injected
 births, and dem_process --particles at 1024^2 with its tile-kernel calls
 bitwise) and the host utilities (a 4096^2 checkpoint round trip,
 prefetch of 16 GeoTIFF tiles through a side stream, the native
-library's build and LZW decode). Each path's kernel launches
+library's build and LZW decode), then sharded execution
+(soillib_tpu_torch.parallel, phase 21) in ranks spawned by
+parallel.launch: a 1 x 1 mesh over NCCL at 1024^2 (two steps, each
+bitwise equal to erode's), and four ranks sharing the card over
+host-staged gloo as a 2 x 2 mesh: the 4096^2 headline step against the
+single-device step (every cohort call of rank 0 bitwise against the
+plain rounds on its padded block; ms a step per rank, the exchanges'
+share, the halo bytes, peak memory), the pod examples at their defaults
+(erosion_pod 1024^2 x 64 steps; dem_mc_pod 256^2 with 1,048,576
+particles against the single-device estimators), the distributed
+accumulate of the DEM path's 4096^2 graph (every tile call of rank 0
+bitwise) and the sharded solve_uniform at 1024^2 (bitwise, every sweep
+call of rank 0 bitwise). Each path's kernel launches
 are counted from zero just before it runs and read just after; one more
 step of each erosion path, and one accumulate, is profiled by kernel.
 Every phase raises on failure. The last three lines of standard output are a JSON object
@@ -2489,6 +2501,442 @@ def phase_native(n=256, seed=43):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Sharded execution (soillib_tpu_torch.parallel): child ranks spawned by
+# parallel.launch. The rank_* functions run in every rank (a spawned
+# process imports this file as its main module); a rank that raises makes
+# the launcher raise, and nothing here catches it.
+# ---------------------------------------------------------------------------
+
+
+def zero_rank_counts():
+    """Every kernel launch count of this process set to 0."""
+    from soillib_tpu_torch.ops import cohort, sweep
+    from soillib_tpu_torch.ops import graph_tiled as gt
+
+    zero_counts(cohort.cohort_round_launches, cohort.cohort_rounds,
+                gt.tile_launches, sweep.sweep_launches, sweep.sweep_rounds)
+
+
+def rank_counts():
+    """This process's kernel launches since `zero_rank_counts`."""
+    from soillib_tpu_torch.ops import cohort, sweep
+    from soillib_tpu_torch.ops import graph_tiled as gt
+
+    return {**nonzero(cohort.cohort_round_launches),
+            **{f"tile_{k}": v for k, v in gt.tile_launches.items() if v},
+            **({"sweep": sweep.sweep_launches["round"]}
+               if sweep.sweep_launches["round"] else {})}
+
+
+def sync_ranks(mesh):
+    """Wait for this rank's card work, then for every rank."""
+    import torch
+
+    torch.cuda.synchronize(mesh.device)
+    mesh.all_reduce(torch.zeros(1, device=mesh.device))
+
+
+def block_of(mesh, a):
+    """This rank's block of a global field (parallel.shard_field)."""
+    from soillib_tpu_torch import parallel as par
+
+    return par.shard_field(a, mesh)
+
+
+def state_block_diffs(mesh, got, want):
+    """Per field: (max abs, max relative difference, bitwise, within
+    tests/test_parallel.py's bar |got - want| <= 1e-5 + 1e-4 |want|) of a
+    block state against the same block of a single-device state."""
+    import dataclasses
+
+    import torch
+
+    out = {}
+    for f in dataclasses.fields(got):
+        g = getattr(got, f.name)
+        w = block_of(mesh, getattr(want, f.name))
+        if g.shape != w.shape:
+            raise AssertionError(f"{f.name}: block {tuple(g.shape)} vs "
+                                 f"{tuple(w.shape)}")
+        d = (g.double() - w.double()).abs()
+        rel = d / w.double().abs().clamp(min=1e-30)
+        out[f.name] = (float(d.max()), float(rel.max()),
+                       bool(torch.equal(g.view(torch.int32),
+                                        w.view(torch.int32))),
+                       bool((d <= 1e-5 + 1e-4 * w.double().abs()).all()))
+    return out
+
+
+def rank0_spies(mesh, *targets):
+    """A context recording every call of each (module, name) on rank 0
+    (`Spy`), nothing elsewhere; yields the spies (empty off rank 0)."""
+    import contextlib
+
+    stack = contextlib.ExitStack()
+    spies = [stack.enter_context(Spy(m, n)) for m, n in targets] \
+        if mesh.rank == 0 else []
+    return stack, spies
+
+
+def rank_nccl_1x1(mesh, n):
+    """21(a): a 1 x 1 mesh over NCCL at n^2, one step at 32 rounds and one
+    with transportTol 1e-6 at the default depth, each bitwise against
+    erode's step on the card."""
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch import parallel as par
+
+    st = soil.ErosionState.zeros((n, n), height=terrain(n, 7, mesh.device),
+                                 device=mesh.device)
+    out = {"transport": mesh.transport_name}
+    for name, kw in (("32 rounds", {"transportIterations": 32}),
+                     ("transportTol 1e-6", {"transportIterations": 0,
+                                            "transportTol": 1e-6})):
+        p = soil.ErosionParams()
+        for k, v in kw.items():
+            setattr(p, k, v)
+        zero_rank_counts()
+        got, ms = timed(lambda: par.sharded_erode(st, mesh, (0.1, 0.1, 4.0),
+                                                  p))
+        counts = rank_counts()
+        want = soil.erode(st, (0.1, 0.1, 4.0), p)
+        diffs = state_block_diffs(mesh, got, want)
+        bad = [f for f, d in diffs.items() if not d[2]]
+        if bad:
+            raise AssertionError(f"21(a) {name}: the 1 x 1 NCCL step differs "
+                                 f"from erode's in {bad}: {diffs}")
+        out[name] = {"ms": ms, "launches": counts}
+    return out
+
+
+def headline_state(n, device):
+    """bench.py's inputs at n^2: noise terrain, constant rain and uplift,
+    white albedos."""
+    import soillib_tpu_torch as soil
+
+    height = soil.noise((n, n), soil.noise_t(), device=device) * 0.5 + 1.0
+    return soil.ErosionState.zeros((n, n), height=height, rainfall=1.0,
+                                   uplift=0.0, albedo_bedrock=(1.0, 1.0, 1.0),
+                                   albedo_surface=(1.0, 1.0, 1.0),
+                                   device=device)
+
+
+def rank_step_2x2(mesh, n, iters):
+    """21(b): the headline step (bench.py's inputs, default parameters,
+    albedo on) at n^2 on this rank's block. Step 1 is recorded on rank 0
+    (every cohort and sweep call, for the plain checks) and held against
+    the single-device step (each rank computes it and compares its own
+    block); step 2 is timed; step 3 runs under the timed halo ledger."""
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch import parallel as par
+    from soillib_tpu_torch.ops import cohort, sweep
+    from soillib_tpu_torch.parallel import halo
+
+    dev = mesh.device
+    p = soil.ErosionParams()
+    p.transportIterations = iters
+    p.trackAlbedo = True
+    scale = (0.078, 0.078, 4.0)
+    state = headline_state(n, dev)
+    block = par.shard_state(state, mesh)
+    fn = par.make_sharded_erode_fn(mesh, scale, p)
+    zero_rank_counts()
+    stack, spies = rank0_spies(mesh, (cohort, "cohort_advance_cuda"),
+                               (sweep, "transport_advance_cuda"))
+    with stack:
+        got = fn(block)
+        sync_ranks(mesh)
+    counts = rank_counts()
+    want = soil.make_erode_fn(p, scale)(state)
+    diffs = state_block_diffs(mesh, got, want)
+    del want, state
+    checks = []
+    if spies:
+        sc, ss = spies
+        if not sc.calls:
+            raise AssertionError("21(b): no cohort kernel call on rank 0")
+        for i, (args, out) in enumerate(sc.calls):
+            st, aux, rules, r, Llen, _, cl, G = args
+            ref = cohort.cohort_advance_reference(st, aux, rules, r, Llen,
+                                                  closure=cl, G=G)
+            checks.append(max(
+                bitwise_err(f"21(b) cohort call {i} state", out[0], ref[0]),
+                bitwise_err(f"21(b) cohort call {i} deposits", out[1],
+                            ref[1])))
+            del ref
+        checks += sweep_call_errs("21(b)", ss.calls)
+        shapes = [list(a[0].shape) for a, _ in sc.calls]
+        del sc.calls, ss.calls
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sync_ranks(mesh)
+    got2, ms = timed(lambda: fn(got))
+    sync_ranks(mesh)
+    peak = torch.cuda.max_memory_allocated(dev)
+    with halo.halo_ledger(timed=True) as entries:
+        t0 = time.perf_counter()
+        fn(got2)
+        torch.cuda.synchronize(dev)
+        ledger_ms = (time.perf_counter() - t0) * 1e3
+        ledger = list(entries)
+    finite_state(got2, "21(b) step 2")
+    out = {"transport": mesh.transport_name, "rank": mesh.rank,
+           "diffs": diffs, "launches": counts, "ms": ms,
+           "peak_bytes": peak, "ledger_step_ms": ledger_ms,
+           "exchange_ms": 1e3 * sum(e[3] for e in ledger),
+           "exchanges": len(ledger),
+           "payload_bytes": sum(e[1] for e in ledger),
+           "sent_bytes": sum(e[2] for e in ledger)}
+    if spies:
+        out["plain_checks"] = {"calls": len(checks), "max_abs_err":
+                               max(checks) if checks else None,
+                               "cohort_call_shapes": shapes}
+    return out
+
+
+def rank_examples(mesh):
+    """21(c) and (d): the port's pod examples at their own defaults."""
+    from soillib_tpu_torch.examples import dem_mc_pod, erosion_pod
+
+    out = {"transport": mesh.transport_name}
+    zero_rank_counts()
+    t0 = time.perf_counter()
+    lines, ms = erosion_pod.run(mesh, erosion_pod.parse([]))
+    out["erosion_pod"] = {"lines": lines, "ms_per_step": ms,
+                          "launches": rank_counts(),
+                          "s": time.perf_counter() - t0}
+    zero_rank_counts()
+    t0 = time.perf_counter()
+    lines, res = dem_mc_pod.run(mesh, dem_mc_pod.parse([]))
+    out["dem_mc_pod"] = {"lines": lines, "result": res,
+                         "s": time.perf_counter() - t0}
+    return out
+
+
+def rank_accumulate(mesh, flow, area, decayed, n_solve):
+    """21(e): the distributed accumulate of the DEM path's 4096^2 graph
+    (phase 6's terrain), plain and decayed, against phase 6's
+    single-device results (each rank its block, rtol 1e-5 / atol 1e-4),
+    every tile call on rank 0 held against its plain fixed point; then the
+    sharded solve_uniform at n_solve^2 (2 * n_solve rounds) against the
+    single-device solve on rank 0, bitwise, every sweep call on rank 0 held
+    against the plain rounds."""
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch import parallel as par
+    from soillib_tpu_torch.ops import graph_tiled as gt
+    from soillib_tpu_torch.ops import sweep
+
+    dev = mesh.device
+    out = {"transport": mesh.transport_name}
+    fb = block_of(mesh, flow)
+    rain = torch.ones(fb.shape, device=dev)
+    zero_rank_counts()
+    stack, spies = rank0_spies(mesh, (gt, "local_fp_cuda"),
+                               (gt, "trace_cuda"))
+    with stack:
+        sync_ranks(mesh)
+        a, out["accumulate_ms"] = timed(
+            lambda: par.graph.accumulate(fb, rain, soil.d8, mesh=mesh))
+        sync_ranks(mesh)
+        d, out["accumulate_decay_ms"] = timed(
+            lambda: par.graph.accumulate(fb, rain, soil.d8, mesh=mesh,
+                                         decay=0.9999))
+    out["accumulate_launches"] = rank_counts()
+    out["accumulate_err"] = max(
+        check_close("21(e) accumulate", a, block_of(mesh, area), 1e-5, 1e-4),
+        check_close("21(e) accumulate_decay", d, block_of(mesh, decayed),
+                    1e-5, 1e-4))
+    if spies:
+        loc, tr = spies
+        if not loc.calls or not tr.calls:
+            raise AssertionError("21(e): no tile kernel call on rank 0")
+        el, _ = tile_call_errs("21(e)", "local", loc.calls)
+        et, _ = tile_call_errs("21(e)", "trace", tr.calls)
+        out["tile_checks"] = {"local": len(loc.calls), "trace": len(tr.calls),
+                              "max_abs_err": max(el + et)}
+        del loc.calls, tr.calls
+    del a, d, fb, rain
+    torch.cuda.empty_cache()
+
+    n = n_solve
+    h = terrain(n, 19, dev) * 400.0
+    grad = soil.gradient(soil.fill_depressions(h), (90.0, 90.0))
+    velocity = -grad / torch.clamp(
+        torch.linalg.vector_norm(grad, dim=-1, keepdim=True), min=1e-6)
+    ones = torch.ones((n, n), device=dev)
+    evap = torch.full((n, n), 0.001, device=dev)
+    zero_rank_counts()
+    stack, spies = rank0_spies(mesh, (sweep, "transport_advance_cuda"))
+    with stack:
+        sync_ranks(mesh)
+        G, out["solve_ms"] = timed(lambda: par.ops.solve_uniform(
+            par.shard_field(velocity, mesh, ("X", "Y", None)),
+            block_of(mesh, ones), block_of(mesh, evap), (90.0, 90.0),
+            mesh=mesh))
+    out["solve_launches"] = rank_counts()
+    G = par.gather_field(G, mesh)
+    if mesh.rank == 0:
+        want = soil.solve_uniform(velocity, ones, evap, (90.0, 90.0))
+        out["solve_err"] = bitwise_err("21(e) sharded solve_uniform", G,
+                                       want)
+    if spies:
+        if not spies[0].calls:
+            raise AssertionError("21(e): no sweep kernel call on rank 0")
+        errs = sweep_call_errs("21(e)", spies[0].calls)
+        out["sweep_checks"] = {"calls": len(errs), "max_abs_err": max(errs)}
+    return out
+
+
+def phase_sharded(dem_keep):
+    """Phase 21 (see main): returns the launches each sharded path made,
+    summed over its ranks, by kernel."""
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch import parallel as par
+    from soillib_tpu_torch.core.device import seeded_generator
+    from soillib_tpu_torch.examples import dem_mc_pod
+    from soillib_tpu_torch.models import erosion as ero
+    from soillib_tpu_torch.ops import transport
+
+    def total(results, key):
+        out = {}
+        for r in results:
+            for k, v in r[key].items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    paths = {}
+    t0 = time.perf_counter()
+    (a,) = par.launch(rank_nccl_1x1, 1, transport="nccl",
+                      devices=["cuda:0"], args=(1024,), timeout=600)
+    log(f"  (a) 1 x 1 mesh, transport {a['transport']}, 1024^2: "
+        + "; ".join(f"{k} bitwise equal to erode's step ({v['ms']:.1f} ms, "
+                    f"launches {v['launches']})"
+                    for k, v in a.items() if k != "transport")
+        + f"; {time.perf_counter() - t0:.1f} s with the rank's start")
+    paths["sharded 1x1 nccl 1024^2 (2 steps)"] = total(
+        [a["32 rounds"], a["transportTol 1e-6"]], "launches")
+
+    t0 = time.perf_counter()
+    b = par.launch(rank_step_2x2, 4, transport="gloo",
+                   devices=["cuda:0"] * 4, args=(4096, 32), timeout=900)
+    worst = {}
+    for r in b:
+        for f, (d, rel, bit, ok) in r["diffs"].items():
+            w = worst.get(f, (0.0, 0.0, True, True))
+            worst[f] = (max(w[0], d), max(w[1], rel), w[2] and bit,
+                        w[3] and ok)
+    bitwise = all(w[2] for w in worst.values())
+    for f, (d, rel, bit, ok) in worst.items():
+        if not ok:
+            raise AssertionError(f"21(b) {f}: max abs {d:.3e}, max rel "
+                                 f"{rel:.3e}, outside rtol 1e-4 / atol 1e-5")
+    chk = b[0]["plain_checks"]
+    log(f"  (b) 2 x 2 mesh, 4 ranks on the one card, transport "
+        f"{b[0]['transport']}, 4096^2 headline step (32 rounds, albedo on) "
+        f"vs the single-device step: "
+        f"{'bitwise equal' if bitwise else 'within rtol 1e-4 / atol 1e-5'};"
+        f" worst per field [max abs, max rel] "
+        f"{json.dumps({f: [w[0], w[1]] for f, w in worst.items()})}")
+    log(f"  (b) rank 0's {chk['calls']} cohort/sweep calls bitwise equal to "
+        f"the plain rounds on their padded blocks "
+        f"{chk['cohort_call_shapes'][:1]} (max abs err {chk['max_abs_err']})")
+    for r in b:
+        log(f"  (b) rank {r['rank']}: {r['ms']:.1f} ms a step; exchanges "
+            f"{r['exchange_ms']:.1f} ms of a {r['ledger_step_ms']:.1f} ms "
+            f"step synchronised around each ({r['exchanges']} exchanges, "
+            f"{r['exchange_ms'] / r['ledger_step_ms']:.1%}); halo "
+            f"{r['sent_bytes']} B sent ({r['payload_bytes']} B payload); peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB; launches {r['launches']}")
+    log(f"  (b) {time.perf_counter() - t0:.1f} s with the ranks' start")
+    paths["sharded 2x2 4096^2 step"] = total(b, "launches")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    c = par.launch(rank_examples, 4, transport="gloo",
+                   devices=["cuda:0"] * 4, timeout=900)
+    ep = c[0]["erosion_pod"]
+    log(f"  (c) erosion_pod 2 x 2 on the one card, transport "
+        f"{c[0]['transport']}: " + " | ".join(ep["lines"])
+        + f"; {ep['s']:.1f} s in all")
+    paths["erosion_pod 2x2 1024^2 (128 steps)"] = total(
+        [r["erosion_pod"] for r in c], "launches")
+    mc = c[0]["dem_mc_pod"]
+    res = mc["result"]
+    log(f"  (d) dem_mc_pod 2 x 2 on the one card, transport "
+        f"{c[0]['transport']}: " + " | ".join(mc["lines"]))
+    if res["dropped"] != {"uniform": 0, "fluvial": 0}:
+        raise AssertionError(f"21(d) dropped particles: {res['dropped']}")
+    args = dem_mc_pod.parse([])
+    flow, source, decay, state = dem_mc_pod.problem((args.res, args.res),
+                                                    "cuda")
+    N = 16 * args.res * args.res
+    (G, g_ms) = timed(lambda: transport._solve_particles(
+        flow, source, decay, (0.5, 0.5), N, seeded_generator("cuda", 0),
+        2 * args.res))
+    F, f_ms = timed(lambda: ero._fluvial_particles(
+        state.layers, state.rainfall, state.discharge, state.momentum,
+        state.albedo_surface, (0.5, 0.5, 2.0), dem_mc_pod.fluvial_params(N),
+        seeded_generator("cuda", 1)).reshape(7, args.res, args.res))
+    G, F = G.cpu().numpy(), F.cpu().numpy()
+    got_g, got_f = res["uniform"], res["fluvial"]
+    corr = float(np.corrcoef(got_g.ravel(), G.ravel())[0, 1])
+    tot = abs(float(got_g.sum()) - float(G.sum())) / abs(float(G.sum()))
+    mrel = float(np.abs(got_g - G).mean() / np.abs(G).mean())
+    if not (corr >= 0.999 and tot <= 1e-4 and mrel < 0.01):
+        raise AssertionError(f"21(d) uniform MC vs single-device: corr "
+                             f"{corr}, total rel {tot}, mean rel {mrel}")
+    # The water, mass and momentum channels (tests/test_parallel.py's
+    # fluvial bars); the mass channel of a state at rest is zero in both.
+    fcorr = {ch: float(np.corrcoef(got_f[ch].ravel(), F[ch].ravel())[0, 1])
+             for ch in (0, 1, 2, 3) if F[ch].std() > 0.0}
+    ftot = abs(float(got_f[0].sum()) - float(F[0].sum())) / abs(
+        float(F[0].sum()))
+    zero = [ch for ch in (0, 1, 2, 3) if ch not in fcorr]
+    if (min(fcorr.values()) < 0.99 or ftot > 5e-3
+            or any(got_f[ch].std() > 0.0 for ch in zero)):
+        raise AssertionError(f"21(d) fluvial MC vs single-device: corr "
+                             f"{fcorr}, water total rel {ftot}, channels "
+                             f"{zero} constant in the single-device run")
+    log(f"  (d) vs the single-device estimators on the card, same "
+        f"generators: uniform corr {corr:.6f}, total rel {tot:.2e}, mean "
+        f"rel {mrel:.2e} ({g_ms:.0f} ms single-device); fluvial corr "
+        f"{fcorr}, water total rel {ftot:.2e} ({f_ms:.0f} ms); sharded "
+        f"uniform {res['seconds']['uniform']:.2f} s, fluvial "
+        f"{res['seconds']['fluvial']:.2f} s; {mc['s']:.1f} s in all")
+    del flow, source, decay, state
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    e = par.launch(rank_accumulate, 4, transport="gloo",
+                   devices=["cuda:0"] * 4,
+                   args=(dem_keep["flow"], dem_keep["area"],
+                         dem_keep["decayed"], 1024), timeout=900)
+    e0 = e[0]
+    log(f"  (e) accumulate 4096^2 2 x 2 ({e0['transport']}): "
+        f"{e0['accumulate_ms']:.0f} ms, decayed {e0['accumulate_decay_ms']:.0f}"
+        f" ms on rank 0; max abs err vs the single-device results "
+        f"{max(r['accumulate_err'] for r in e):.3e} (rtol 1e-5 / atol 1e-4); "
+        f"rank 0's {e0['tile_checks']['local']} push and "
+        f"{e0['tile_checks']['trace']} trace calls bitwise equal to the "
+        f"plain fixed points")
+    log(f"  (e) solve_uniform 1024^2, 2048 rounds, 2 x 2: "
+        f"{e0['solve_ms']:.0f} ms; bitwise equal to the single-device solve "
+        f"(max abs err {e0['solve_err']}); rank 0's "
+        f"{e0['sweep_checks']['calls']} sweep calls bitwise equal to the "
+        f"plain rounds; {time.perf_counter() - t0:.1f} s with the ranks' "
+        f"start")
+    paths["sharded accumulate 2x2 4096^2 (plain + decay)"] = total(
+        e, "accumulate_launches")
+    paths["sharded solve_uniform 2x2 1024^2"] = total(e, "solve_launches")
+    return paths
+
+
 def main():
     import torch
 
@@ -2560,6 +3008,8 @@ def main():
                                dem["launches"]["sweep"],
                                dem["launches"]["sweep_rounds"]))
     solve_uniform_check()
+    # Phase 21 runs the distributed accumulate on this graph.
+    dem_keep = {k: dem[k].cpu() for k in ("flow", "area", "decayed")}
     del dem
 
     log("phase 8: field-static, ErosionSim 4096^2, 32 rounds, 3 steps")
@@ -2664,6 +3114,27 @@ def main():
     phase_prefetch()
     phase_native()
     log(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
+
+    torch.cuda.empty_cache()
+    t21 = time.perf_counter()
+    log("phase 21: sharded execution (soillib_tpu_torch.parallel), ranks "
+        "spawned by parallel.launch")
+    paths = phase_sharded(dem_keep)
+    del dem_keep
+    for path, counts in paths.items():
+        for key, n in counts.items():
+            name = {"tile_local": "tile_local", "tile_trace": "tile_trace",
+                    "sweep": "transport_sweep[C=1]"}.get(
+                        key, f"cohort_round[{key}]")
+            by_name[name].setdefault("launches_by_path", {})[path] = n
+    for name in ("cohort_round[fluvial]", "cohort_round[debris]",
+                 "tile_local", "tile_trace", "transport_sweep[C=1]"):
+        if not any(k.startswith(("sharded", "erosion_pod")) for k in
+                   by_name[name].get("launches_by_path", {})):
+            raise AssertionError(f"phase 21: {name} was not launched on a "
+                                 f"sharded path: {paths}")
+    log(f"  sharded launches by path {json.dumps(paths)}")
+    log(f"  phase 21 took {time.perf_counter() - t21:.1f} s")
 
     # The round bounds weigh exp, division and sqrt by the probe's costs.
     costs = probe["fp32"]["costs"]

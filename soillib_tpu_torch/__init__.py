@@ -20,7 +20,8 @@ Entry points run on the card unless the caller passes `device="cpu"`
 device. The headline bench runs as `python -m soillib_tpu_torch.bench`;
 the examples as `python -m soillib_tpu_torch.examples.<name>` (erosion,
 multiscale, dem_process, dem_condition, dem_multiflow and the tiff_*
-scripts). Sharded execution (`parallel`) is not ported yet.
+scripts), and the pod examples `erosion_pod` and `dem_mc_pod`. Sharded
+execution over a mesh of ranks on `torch.distributed` is `parallel`.
 """
 
 from soillib_tpu_torch.core.grid import (
@@ -78,7 +79,7 @@ from soillib_tpu_torch.ops.transport import solve_uniform
 from soillib_tpu_torch.io.tiff import tiff
 from soillib_tpu_torch.io.geotiff import geotiff, geotiff_meta
 from soillib_tpu_torch.io.mesh import mesh
-from soillib_tpu_torch import silt, util
+from soillib_tpu_torch import parallel, silt, util
 
 # Reference-compatible edge-connectivity enumerators (graph.hpp:11-14).
 d4 = D4
@@ -107,4 +108,5 @@ __all__ = [
     "CohortClosure",
     "tiff", "geotiff", "geotiff_meta", "mesh",
     "util",
+    "parallel",
 ]

@@ -10,8 +10,10 @@ Every radius-r stencil is written against this protocol:
 On a single device `NO_HALO` makes both calls the identity, so the ops run
 as plain torch stencils whose internal `_shift` fills supply the boundary
 conditions, and `run_transport` / `run_cohort` dispatch the solves by
-device. Only the single-device form exists so far; the sharded form
-(`ShardHalo` over `torch.distributed`) is still to be ported.
+device. The block-decomposed form is `parallel.halo.ShardHalo`: its ring
+holds the neighbouring ranks' edge slabs (exchanged over
+`torch.distributed`) or, at the domain edge, the op's own fill, and its
+solves exchange a HALO_K-wide ring every HALO_K rounds.
 """
 
 from __future__ import annotations

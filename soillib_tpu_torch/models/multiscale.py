@@ -83,17 +83,22 @@ def run_cascade(
         from 0 where the particle transports need it), passed on unchanged
         to every level's steps, which draw from it in turn (the JAX
         package splits its key once a level).
-      mesh: sharded execution is not ported; anything but None raises.
+      mesh: optional `parallel.Mesh` (call in every rank of it, each with
+        the whole state): each level runs block-decomposed
+        (`parallel.make_sharded_erode_fn`) and its blocks are gathered
+        back to every rank before the next level's resize; the result is
+        the whole state on every rank.
       on_level: optional callback(level_index, resolution, state) after
         each level, for checkpointing/plotting.
 
     Returns the final state.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "run_cascade(mesh=...) needs sharded execution, which is not "
-            "ported yet (ROADMAP queue A item 9); run with mesh=None on "
-            "one device")
+        from soillib_tpu_torch import parallel as par
+
+        if not isinstance(mesh, par.Mesh):
+            raise TypeError(f"mesh must be a soillib_tpu_torch.parallel.Mesh, "
+                            f"got {type(mesh).__name__}")
     key = _particle_key(key, state, param)
     for idx, (res, steps) in enumerate(levels):
         res = (int(res[0]), int(res[1]))
@@ -102,7 +107,14 @@ def run_cascade(
         if tuple(state.layers.shape[-2:]) != res:
             state = resize_state(state, res)
         scale = level_scale(world_extent, zscale, res)
-        state = make_erode_fn(param, scale, steps=int(steps))(state, key)
+        if mesh is not None:
+            par.check_divisible(res, mesh)
+            fn = par.make_sharded_erode_fn(mesh, scale, param,
+                                           steps=int(steps))
+            state = par.gather_state(fn(par.shard_state(state, mesh), key),
+                                     mesh, everywhere=True)
+        else:
+            state = make_erode_fn(param, scale, steps=int(steps))(state, key)
         if on_level is not None:
             on_level(idx, res, state)
     return state

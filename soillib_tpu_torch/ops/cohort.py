@@ -870,15 +870,18 @@ def tail_converged(live, gauge, remaining_rounds, tol, contractive=False):
 
 
 def cohort_advance_reference(st0, aux, rules, iters, Llen, *, closure=None,
-                             tol=0.0):
+                             tol=0.0, G=None):
     """Plain torch solve: one zero-boundary push per round (exact, no
     blocking), on the inputs' device. Returns (advanced state, deposits).
-    `tol` > 0 adds the per-round convergence exit (see carried_live)."""
+    `tol` > 0 adds the per-round convergence exit (see carried_live). The
+    deposits accumulate onto `G` when given (not written), else onto
+    zeros."""
     st = as_stack(st0)
     aux = as_stack(aux)
     C = n_deposits(st.shape[0], closure)
-    G = torch.zeros((C,) + tuple(st.shape[1:]), dtype=st.dtype,
-                    device=st.device)
+    if G is None:
+        G = torch.zeros((C,) + tuple(st.shape[1:]), dtype=st.dtype,
+                        device=st.device)
     contractive = bool(getattr(rules, "contractive", False))
     for i in range(int(iters)):
         if tol and tol > 0.0 and bool(tail_converged(
@@ -1176,19 +1179,22 @@ def cohort_round_cuda(st, aux, G, rules, Llen, out=None, nodes=1,
                               nodes=nodes, closure=closure)
 
 
-def cohort_advance_cuda(st, aux, rules, iters, Llen, tol=0.0, closure=None):
+def cohort_advance_cuda(st, aux, rules, iters, Llen, tol=0.0, closure=None,
+                        G=None):
     """`iters` cohort rounds on the card with ping-pong state buffers;
-    deposits accumulate in place. A one-node, one-color solve runs
-    ROUNDS_PER_LAUNCH rounds per launch (`launch_rounds`); otherwise each
-    round launches the kernel once per color group (`closure.colors`), in
-    color order, into the same deposits: the order of the plain batched
-    round. `tol` > 0 reads the adaptive exit criterion every
-    TOL_CHECK_ROUNDS rounds, always at a launch boundary (one host read
-    each). Returns (advanced state, deposits)."""
-    return _advance_cuda(st, aux, rules, iters, Llen, tol, closure)[:2]
+    deposits accumulate in place, onto a copy of `G` when given (the
+    sharded passes carry their deposits on), else onto zeros. A one-node,
+    one-color solve runs ROUNDS_PER_LAUNCH rounds per launch
+    (`launch_rounds`); otherwise each round launches the kernel once per
+    color group (`closure.colors`), in color order, into the same
+    deposits: the order of the plain batched round. `tol` > 0 reads the
+    adaptive exit criterion every TOL_CHECK_ROUNDS rounds, always at a
+    launch boundary (one host read each). Returns (advanced state,
+    deposits)."""
+    return _advance_cuda(st, aux, rules, iters, Llen, tol, closure, G)[:2]
 
 
-def _advance_cuda(st, aux, rules, iters, Llen, tol, closure):
+def _advance_cuda(st, aux, rules, iters, Llen, tol, closure, G=None):
     """`cohort_advance_cuda`, returning (state, deposits, rounds run): with
     `tol` > 0 the rounds run stop at a TOL_CHECK_ROUNDS check."""
     cl = _check_closure(closure)
@@ -1197,8 +1203,11 @@ def _advance_cuda(st, aux, rules, iters, Llen, tol, closure):
     C = n_deposits(st.shape[0], cl)
     ncol, nnodes = int(cl.colors or 1), int(cl.nodes or 1)
     P = st.shape[0] // ncol
-    G = torch.zeros((C,) + tuple(st.shape[1:]), dtype=torch.float32,
-                    device=st.device)
+    if G is None:
+        G = torch.zeros((C,) + tuple(st.shape[1:]), dtype=torch.float32,
+                        device=st.device)
+    else:
+        G = G.contiguous().clone()
     contractive = bool(getattr(rules, "contractive", False))
     k = ROUNDS_PER_LAUNCH if ncol == 1 and nnodes == 1 else 1
     # Ping-pong between two fresh buffers; the caller's state is only read.

@@ -1036,3 +1036,117 @@ def test_checkpoint_on_card_round_trip(tmp_path):
         assert getattr(back, k).device.type == "cuda", k
         assert torch.equal(getattr(back, k), v), k
         assert torch.equal(getattr(on_cpu, k), v.cpu()), k
+
+
+# ---------------------------------------------------------------------------
+# Sharded execution (soillib_tpu_torch.parallel) on the card
+# ---------------------------------------------------------------------------
+
+
+def _sharded_cases(nprocs, transport, cases):
+    """Rank 0's results of tests/torch_parallel_ranks.py `run_cases` on
+    `nprocs` ranks sharing card 0."""
+    from soillib_tpu_torch import parallel as par
+    from tests import torch_parallel_ranks as ranks
+
+    return par.launch(ranks.run_cases, nprocs, transport=transport,
+                      devices=["cuda:0"] * nprocs, args=(cases,),
+                      timeout=600)[0]
+
+
+def _step_fields(n, seed=0):
+    from soillib_tpu_torch.convert import state_to_numpy
+
+    h = 2.0 + 0.02 * np.random.default_rng(seed).normal(size=(n, n))
+    return state_to_numpy(soil.ErosionState.zeros(
+        (n, n), height=torch.from_numpy(h.astype(np.float32)),
+        device="cpu"))
+
+
+def _step_params(**kw):
+    p = ErosionParams()
+    p.transportIterations = 32
+    for k, v in kw.items():
+        setattr(p, k, v)
+    return p.freeze()
+
+
+@pytest.mark.cuda
+def test_sharded_step_one_rank_nccl_equals_erode_on_card():
+    """A 1 x 1 mesh over NCCL (the group, the adaptive exit's all_reduce)
+    runs erode's step bitwise on the card, at 32 rounds and with
+    transportTol 1e-6 at the default depth."""
+    _needs_card()
+    fields = _step_fields(256)
+    scale = (0.08, 0.08, 4.0)
+    got = _sharded_cases(1, "nccl", [
+        ("fixed", "erode", dict(fields=fields, frozen=_step_params(),
+                                scale=scale, steps=1)),
+        ("tol", "erode", dict(fields=fields, frozen=_step_params(
+            transportIterations=0, transportTol=1e-6), scale=scale,
+            steps=1))])
+    for name in ("fixed", "tol"):
+        assert got[name]["transport"] == "nccl"
+        for f, a in got[name]["got"].items():
+            np.testing.assert_array_equal(a.view(np.int32),
+                                          got[name]["single"][f].view(
+                                              np.int32), err_msg=f)
+
+
+@pytest.mark.cuda
+def test_sharded_step_four_ranks_share_the_card():
+    """2 x 2 ranks on the one card over host-staged gloo: one 256^2 step
+    within tests/test_parallel.py's bar (rtol 1e-4, atol 1e-5) of the
+    single-device step on the card."""
+    _needs_card()
+    got = _sharded_cases(4, "gloo", [
+        ("step", "erode", dict(fields=_step_fields(256, 1),
+                               frozen=_step_params(),
+                               scale=(0.08, 0.08, 4.0), steps=1))])["step"]
+    assert got["transport"] == "gloo, host-staged"
+    for f in ("layers", "discharge", "mass", "momentum", "debris",
+              "debris_momentum", "albedo_surface"):
+        np.testing.assert_allclose(got["got"][f], got["single"][f],
+                                   rtol=1e-4, atol=1e-5, err_msg=f)
+
+
+@pytest.mark.cuda
+def test_sharded_accumulate_on_card():
+    """The distributed accumulate (the tile kernels per block) on 2 x 2
+    ranks sharing the card, against the single-device accumulate on the
+    card at rtol 1e-5 / atol 1e-4."""
+    _needs_card()
+    rng = np.random.default_rng(4)
+    h = (rng.normal(size=(512, 384)) * 3.0
+         + np.linspace(0, 5, 512)[:, None]).astype(np.float32)
+    h = soil.fill_depressions(torch.from_numpy(h), device="cpu")
+    flows = {e: soil.steepest(h, e).numpy() for e in (soil.d4, soil.d8)}
+    rain = np.ones((512, 384), np.float32)
+    decay = np.full((512, 384), 0.98, np.float32)
+    got = _sharded_cases(4, "gloo", [
+        ("acc", "accumulate", dict(flows=flows, rain=rain, decay=decay))])
+    for e, flow in flows.items():
+        f = torch.from_numpy(flow).cuda()
+        want = soil.accumulate(f, torch.from_numpy(rain).cuda(), e)
+        _close(torch.from_numpy(got["acc"][f"plain{e}"]), want, 1e-5, 1e-4,
+               f"edge {e}")
+        want = soil.accumulate_decay(f, torch.from_numpy(rain).cuda(),
+                                     torch.from_numpy(decay).cuda(), e)
+        _close(torch.from_numpy(got["acc"][f"decay{e}"]), want, 1e-5, 1e-4,
+               f"decay edge {e}")
+
+
+@pytest.mark.cuda
+def test_nccl_with_two_ranks_on_one_card_raises():
+    """An impossible request raises before any rank starts; nothing falls
+    back to gloo or to the CPU."""
+    _needs_card()
+    from soillib_tpu_torch import parallel as par
+    from tests import torch_parallel_ranks as ranks
+
+    with pytest.raises(ValueError, match="one card per rank"):
+        par.launch(ranks.run_cases, 2, transport="nccl",
+                   devices=["cuda:0", "cuda:0"], args=([],))
+    with pytest.raises(ValueError, match="does not exist"):
+        par.launch(ranks.run_cases, 1, transport="nccl",
+                   devices=[f"cuda:{torch.cuda.device_count()}"], args=([],))

@@ -141,7 +141,9 @@ def test_cascade_matches_jax():
 
 
 def test_cascade_with_a_mesh_raises():
+    """A mesh that is not a `parallel.Mesh` raises (the sharded cascade
+    itself is held in tests/test_torch_parallel.py)."""
     st = _init_state((16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         soil.run_cascade(st, [((16, 16), 1)], (20.0, 20.0), 4.0,
                          soil.ErosionParams(), mesh=object())

@@ -29,6 +29,10 @@ def test_import_pulls_in_no_jax():
         "    importlib.import_module(name)\n"
         "assert 'soillib_tpu_torch.examples.multiscale' in names\n"
         "assert 'soillib_tpu_torch.io.mesh' in names\n"
+        "for m in ('mesh', 'halo', 'erosion', 'ops', 'graph', 'particles'):\n"
+        "    assert 'soillib_tpu_torch.parallel.' + m in names, m\n"
+        "for m in ('erosion_pod', 'dem_mc_pod'):\n"
+        "    assert 'soillib_tpu_torch.examples.' + m in names, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'soillib_tpu' or m.startswith('soillib_tpu.')]\n"
         "print(len(names), bad)\n"
@@ -40,14 +44,20 @@ def test_import_pulls_in_no_jax():
 
 
 def test_public_surface_matches_the_jax_package_but_the_queued_names():
-    """Every name of the JAX package's `__all__` is exported by the port,
-    except the one still queued (ROADMAP queue A item 9)."""
+    """Every name of the JAX package's `__all__` is exported by the port
+    (none is queued any more), and `parallel` has the JAX package's
+    `__all__`."""
     import soillib_tpu
+    import soillib_tpu.parallel
 
     missing = set(soillib_tpu.__all__) - set(soil.__all__)
-    assert missing == {"parallel"}
+    assert missing == set()
     for name in soil.__all__:
         assert hasattr(soil, name), name
+    assert sorted(soil.parallel.__all__) == sorted(
+        soillib_tpu.parallel.__all__)
+    for name in soil.parallel.__all__:
+        assert hasattr(soil.parallel, name), name
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():
