@@ -50,7 +50,14 @@ share, the halo bytes, peak memory), the pod examples at their defaults
 particles against the single-device estimators), the distributed
 accumulate of the DEM path's 4096^2 graph (every tile call of rank 0
 bitwise) and the sharded solve_uniform at 1024^2 (bitwise, every sweep
-call of rank 0 bitwise). Each path's kernel launches
+call of rank 0 bitwise), then the compiled driver (phase 22: make_erode_fn
+replaying one step captured as a CUDA graph, against the eager erode_step,
+bitwise with equal launch counters, in seven configurations from the
+bench's 4096^2 to the cascade's 128^2 level and the flagship's particle
+step; ms a step, idle share, capture time and peak memory of both). The
+erosion paths of every phase run the compiled driver; where a phase
+records a kernel's inputs it calls the eager erode_step. Each path's
+kernel launches
 are counted from zero just before it runs and read just after; one more
 step of each erosion path, and one accumulate, is profiled by kernel.
 Every phase raises on failure. The last three lines of standard output are a JSON object
@@ -254,7 +261,9 @@ def phase_main_path(n=4096, steps=3, iters=32):
 
 def capture_solves(sim):
     """The cohort solve inputs of one more step of `sim` (st, aux, rules,
-    Llen per rule set), recorded at the dispatch point."""
+    Llen per rule set), recorded at the dispatch point of an eager
+    `erode_step` (a replayed step calls no Python)."""
+    from soillib_tpu_torch.models.simulation import erode_step
     from soillib_tpu_torch.ops import cohort
 
     captured = {}
@@ -268,7 +277,7 @@ def capture_solves(sim):
 
     cohort.run_cohort = spy
     try:
-        sim.step()
+        sim.state = erode_step(sim.state, sim.scale, sim.param, sim.key)
     finally:
         cohort.run_cohort = run
     return captured
@@ -498,7 +507,8 @@ def phase_kernel_vs_plain_erode(n=256, steps=2, iters=32):
 
 def phase_faithful_depth(n=1024):
     """transportIterations=0 (maxage-2 = 510 rounds) with the adaptive
-    exit. The kernel path checks the exit every TOL_CHECK_ROUNDS rounds,
+    exit, one eager `erode_step` (phase 22 holds the compiled step to it).
+    The kernel path checks the exit every TOL_CHECK_ROUNDS rounds,
     the plain path every round: each solve of the step is rerun on the
     plain path on the card, and the kernel must have run the plain exit
     round rounded up to the next check (at most the bound), with deposits
@@ -507,6 +517,7 @@ def phase_faithful_depth(n=1024):
     import torch
 
     import soillib_tpu_torch as soil
+    from soillib_tpu_torch.models.simulation import erode_step
     from soillib_tpu_torch.ops import cohort
 
     p = soil.ErosionParams()
@@ -529,7 +540,7 @@ def phase_faithful_depth(n=1024):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        st = soil.erode(st, (0.1, 0.1, 4.0), p, steps=1)
+        st = erode_step(st, (0.1, 0.1, 4.0), p)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
     finally:
@@ -582,7 +593,8 @@ def idle_share(busy_ms, wall_ms, what):
 
 def phase_breakdown(sim, kernels=(("cohort_kernel_ms",
                                    "cohort_rounds_kernel"),)):
-    """Device time of one more step of `sim` by kernel, from
+    """Device time of one more step of `sim` (after one unprofiled) by
+    kernel, from
     torch.profiler: each (label, kernel name) of `kernels`, the rest (the
     plain torch glue) and the device's idle share of the step's wall
     time."""
@@ -590,6 +602,7 @@ def phase_breakdown(sim, kernels=(("cohort_kernel_ms",
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    sim.step()  # unprofiled: a step not compiled yet captures here
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1192,10 +1205,9 @@ def phase_field_static(n=4096, steps=3, iters=32):
     """ErosionSim at n^2 with transportMethod="field-static": the fluvial
     transport is the sweep kernel at C = 7 (albedo on), the debris one the
     cohort kernel. Returns the sim, the step times, launches and the sweep
-    inputs."""
-    import torch
-
+    inputs of one more, eager step."""
     import soillib_tpu_torch as soil
+    from soillib_tpu_torch.models.simulation import erode_step
     from soillib_tpu_torch.ops import cohort, sweep
 
     p = soil.ErosionParams()
@@ -1207,14 +1219,24 @@ def phase_field_static(n=4096, steps=3, iters=32):
     zero_counts(sweep.sweep_launches, sweep.sweep_rounds,
                 cohort.cohort_round_launches, cohort.cohort_rounds)
     times = []
-    with Spy(sweep, "transport_advance_cuda") as sw:
-        for _ in range(steps):
-            _, ms = timed(sim.step)
-            times.append(ms)
+    for _ in range(steps):
+        _, ms = timed(sim.step)
+        times.append(ms)
     launches = nonzero({"sweep": sweep.sweep_launches["round"],
                         **cohort.cohort_round_launches})
     rounds = nonzero({"sweep": sweep.sweep_rounds["round"],
                       **cohort.cohort_rounds})
+    # The sweep calls of one more step, eager, for the kernel's checks.
+    saved = [dict(c) for c in (sweep.sweep_launches, sweep.sweep_rounds,
+                               cohort.cohort_round_launches,
+                               cohort.cohort_rounds)]
+    with Spy(sweep, "transport_advance_cuda") as sw:
+        erode_step(sim.state, sim.scale, sim.param)
+    for c, before in zip((sweep.sweep_launches, sweep.sweep_rounds,
+                          cohort.cohort_round_launches, cohort.cohort_rounds),
+                         saved):
+        c.clear()
+        c.update(before)
     finite_state(sim.state, f"{n}^2 field-static erode")
     want = {"sweep": steps * len(sweep.sweep_launch_rounds(iters)),
             "debris": steps * len(
@@ -1411,18 +1433,24 @@ def quality_params(iters):
 def phase_quality_erode_check(n=256, steps=2, iters=32):
     """A quality erode (CohortClosure(nodes=4, colors=8)) through the
     kernel against the same erode with the plain rounds, both on the
-    card: fields at rtol 1e-4 / atol 1e-6 of each field's scale."""
+    card and both eager `erode_step`s (the plain rounds are patched in):
+    fields at rtol 1e-4 / atol 1e-6 of each field's scale."""
     import torch
 
     import soillib_tpu_torch as soil
+    from soillib_tpu_torch.models.simulation import _canonicalize, erode_step
     from soillib_tpu_torch.ops import cohort
+
+    def erode(state):
+        state = _canonicalize(state, p)
+        for _ in range(steps):
+            state = erode_step(state, (0.1, 0.1, 4.0), p)
+        return state
 
     p = quality_params(iters)
     h = terrain(n, 31)
     zero_counts(cohort.cohort_round_launches, cohort.cohort_rounds)
-    got = soil.erode(soil.ErosionState.zeros((n, n), height=h), (0.1, 0.1,
-                                                                 4.0), p,
-                     steps=steps)
+    got = erode(soil.ErosionState.zeros((n, n), height=h))
     launches = nonzero(cohort.cohort_round_launches)
     check_quality_counts(launches, nonzero(cohort.cohort_rounds), steps,
                          iters, "quality erode")
@@ -1435,8 +1463,7 @@ def phase_quality_erode_check(n=256, steps=2, iters=32):
 
     cohort.run_cohort = plain
     try:
-        want = soil.erode(soil.ErosionState.zeros((n, n), height=h),
-                          (0.1, 0.1, 4.0), p, steps=steps)
+        want = erode(soil.ErosionState.zeros((n, n), height=h))
     finally:
         cohort.run_cohort = run
     errs, same = {}, True
@@ -1526,9 +1553,10 @@ def phase_quality(n=4096, steps=2, iters=32):
     check_quality_counts(launches, nonzero(cohort.cohort_rounds), steps,
                          iters, "quality")
     chunks = [out for _, out in chunk.calls]
-    log(f"  step ms {[round(t, 1) for t in times]}; launches {launches}; "
-        f"color groups per chunk, by step: {chunks} of 8 (68 channels "
-        f"each); peak memory {peak_gb:.1f} GB")
+    log(f"  step ms {[round(t, 1) for t in times]} (the first with the "
+        f"warm-up and the capture); launches {launches}; color groups per "
+        f"chunk, at the warm-up and at the capture: {chunks} of 8 (68 "
+        f"channels each); peak memory {peak_gb:.1f} GB")
     return sim, times, launches, chunks, cap.captured
 
 
@@ -1543,34 +1571,68 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CASCADE_LEVEL0_STEPS = 2048
 
 
-def sample_solves(levels):
+def sample_solves():
     """While active, keeps a copy of the cohort solve inputs (st, aux,
-    rules, Llen) of each rule set at the first and the last step of each
-    level of `levels`, recorded at the dispatch point by the grid shape
-    they come at: (W, H, kind, step within the level) -> inputs."""
+    rules, Llen) of each rule set at the first step of each level of the
+    cascade: the compiled step's eager warm-up, which runs the level's
+    first step from the level's own input state (a replayed step calls no
+    Python), by the grid shape they come at: (W, H, kind, 0) -> inputs;
+    and each level's final state, by its shape. `more_solves` adds the
+    solves of one more eager step from each final state."""
+    import torch
+
+    import soillib_tpu_torch as soil
     from soillib_tpu_torch.ops import cohort
 
-    want = {tuple(r): {0, n - 1} for r, n in levels}
-    seen, kept = {}, {}
-    run = cohort.run_cohort
+    kept, finals = {}, {}
+    run, cascade = cohort.run_cohort, soil.run_cascade
 
     def spy(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
         st, aux = cohort.as_stack(st0), cohort.as_stack(aux)
-        key = (*st.shape[1:], rules.kind)
-        i = seen[key] = seen.get(key, -1) + 1
-        if i in want.get(tuple(st.shape[1:]), ()):
-            kept[(*key, i)] = (st.clone(), aux.clone(), rules, Llen)
+        if not torch.cuda.is_current_stream_capturing():
+            kept.setdefault((*st.shape[1:], rules.kind, 0),
+                            (st.clone(), aux.clone(), rules, Llen))
         return run(st, aux, rules, iters, Llen, closure, tol)
+
+    def level(state, levels, *args, **kw):
+        out = cascade(state, levels, *args, **kw)
+        finals[tuple(out.layers.shape[-2:])] = out
+        return out
 
     class Sampler:
         def __enter__(self):
-            cohort.run_cohort = spy
-            return kept
+            cohort.run_cohort, soil.run_cascade = spy, level
+            return kept, finals
 
         def __exit__(self, *exc):
-            cohort.run_cohort = run
+            cohort.run_cohort, soil.run_cascade = run, cascade
 
     return Sampler()
+
+
+def more_solves(kept, finals, steps, param):
+    """The cohort solve inputs of one eager `erode_step` from each level's
+    final state, kept as (W, H, kind, steps of the level)."""
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.examples import multiscale
+    from soillib_tpu_torch.models.simulation import erode_step
+    from soillib_tpu_torch.ops import cohort
+
+    run = cohort.run_cohort
+    for res, state in finals.items():
+        def spy(st0, aux, rules, iters, Llen, closure=None, tol=0.0,
+                res=res):
+            st, aux = cohort.as_stack(st0), cohort.as_stack(aux)
+            kept[(*res, rules.kind, steps[res])] = (st.clone(), aux.clone(),
+                                                   rules, Llen)
+            return run(st, aux, rules, iters, Llen, closure, tol)
+
+        cohort.run_cohort = spy
+        try:
+            erode_step(state, soil.level_scale(multiscale.WORLD,
+                                               multiscale.ZSCALE, res), param)
+        finally:
+            cohort.run_cohort = run
 
 
 def phase_cascade(level0_steps=CASCADE_LEVEL0_STEPS):
@@ -1579,10 +1641,11 @@ def phase_cascade(level0_steps=CASCADE_LEVEL0_STEPS):
     the flagship example's parameters): per-level ms per step and the
     cohort launches and rounds of the run (counted from zero), a finite
     final state read back from multiscale.zip bitwise; then the cohort
-    solves of the first and the last step of every level, on the
+    solves of the first step of every level (the compiled step's eager
+    warm-up) and of one eager step from every level's final state, on the
     cascade's own inputs, kernel against the plain rounds, bitwise at the
     solve's full depth, and the kernel's time per round on each level's
-    last-step inputs."""
+    last inputs."""
     import tempfile
 
     import torch
@@ -1600,11 +1663,15 @@ def phase_cascade(level0_steps=CASCADE_LEVEL0_STEPS):
         "--levels", ",".join(f"{r[0]}:{n}" for r, n in levels)]
     param = erosion.make_param()
     zero_counts(cohort.cohort_round_launches, cohort.cohort_rounds)
-    with tempfile.TemporaryDirectory() as d, sample_solves(levels) as kept:
+    with tempfile.TemporaryDirectory() as d, sample_solves() as (kept,
+                                                                 finals):
         run, ms = timed(lambda: multiscale.main(argv + ["--out", d]))
         loaded = soil.util.zip_load(os.path.join(d, "multiscale.zip"))
     launches = nonzero(cohort.cohort_round_launches)
     rounds = nonzero(cohort.cohort_rounds)
+    saved = dict(cohort.cohort_round_launches), dict(cohort.cohort_rounds)
+    more_solves(kept, finals, {tuple(r): n for r, n in levels}, param)
+    del finals
     state = run["state"]
     finite_state(state, "cascade")
     if tuple(state.layers.shape) != (2, 1000, 1000):
@@ -1622,7 +1689,7 @@ def phase_cascade(level0_steps=CASCADE_LEVEL0_STEPS):
     if rounds != want_r or launches != want_l:
         raise AssertionError(f"cascade: rounds {rounds} in launches "
                              f"{launches}, expected {want_r} in {want_l}")
-    want_k = {(*r, kind, i) for r, n in levels for i in (0, n - 1)
+    want_k = {(*r, kind, i) for r, n in levels for i in (0, n)
               for kind in ("fluvial", "debris")}
     if set(kept) != want_k:
         raise AssertionError(f"cascade: sampled solves {sorted(kept)}, "
@@ -1630,8 +1697,7 @@ def phase_cascade(level0_steps=CASCADE_LEVEL0_STEPS):
 
     # The sampled solves: kernel against plain, bitwise at the solve's
     # full depth; then the kernel's time per round on each level's
-    # last-step inputs.
-    saved = dict(cohort.cohort_round_launches), dict(cohort.cohort_rounds)
+    # last inputs.
     errs, kernel_ms = {}, {}
     K = cohort.ROUNDS_PER_LAUNCH
     for (W, H, kind, i), (st, aux, rules, Llen) in sorted(kept.items()):
@@ -1644,7 +1710,7 @@ def phase_cascade(level0_steps=CASCADE_LEVEL0_STEPS):
         del st_k, g_k, st_p, g_p
     for r, n in levels:
         for kind in ("fluvial", "debris"):
-            st, aux, rules, Llen = kept[(*r, kind, n - 1)]
+            st, aux, rules, Llen = kept[(*r, kind, n)]
             G = torch.zeros((st.shape[0] - cohort.NSTATE, *r),
                             device="cuda")
             out = torch.empty_like(st)
@@ -1685,7 +1751,8 @@ def phase_cascade(level0_steps=CASCADE_LEVEL0_STEPS):
     log(f"  cascade {'(' + cut + ') ' if cut else ''}ms/step per level "
         f"{[round(m, 3) for m in run['ms_per_step']]}, total "
         f"{run['seconds']:.2f} s; cohort launches {launches}, rounds "
-        f"{rounds}; the solves of the first and last step of every level "
+        f"{rounds}; the solves of the first step of every level and of one "
+        f"step past its last "
         f"({len(errs)}) bitwise equal to plain; kernel ms per round "
         f"{json.dumps({k: round(v, 4) for k, v in kernel_ms.items()})}"
         f"; idle share of the unprofiled step "
@@ -2237,10 +2304,13 @@ def phase_particles_full_width(n=4096, maxage=PARTICLE_MAXAGE,
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     first, ms_first = timed(lambda: step(11))
+    second, ms = timed(lambda: step(11))
+    # Each transport's time, from an eager step (a replay calls no Python).
     fl = Stopwatch(simulation, "transport_fluvial", device)
     db = Stopwatch(simulation, "transport_debris", device)
     with fl, db:
-        second, ms = timed(lambda: step(11))
+        simulation.erode_step(simulation._canonicalize(state, p),
+                              (0.1, 0.1, 4.0), p, seeded_generator(device, 11))
     finite_state(second, f"particles {n}^2")
     diff = state_diff(first, second)
     peak = (torch.cuda.max_memory_allocated() / 1e9
@@ -2248,6 +2318,7 @@ def phase_particles_full_width(n=4096, maxage=PARTICLE_MAXAGE,
     rounds = max(p.maxage - 1, 0)
     short = soil.make_erode_fn(_with_maxage(p, PROFILED_MAXAGE),
                                (0.1, 0.1, 4.0))
+    short(state, seeded_generator(device, 12))  # captures: not profiled
     prof = (profiled_idle(lambda: short(state, seeded_generator(device,
                                                                 12)),
                           f"particles {n}^2 step", 2 * (PROFILED_MAXAGE - 1))
@@ -2331,6 +2402,7 @@ def phase_particles_flagship(res=256, steps=32, device="cuda"):
     finite_state(sim.state, f"particles flagship {res}^2")
     rounds = max(p.maxage - 1, 0)
     short = soil.make_erode_fn(_with_maxage(p, PROFILED_MAXAGE), pscale)
+    short(sim.state, sim.key)  # captures: not profiled
     prof = (profiled_idle(lambda: short(sim.state, sim.key),
                           f"particles flagship {res}^2 step",
                           2 * (PROFILED_MAXAGE - 1))
@@ -2582,9 +2654,10 @@ def rank0_spies(mesh, *targets):
 def rank_nccl_1x1(mesh, n):
     """21(a): a 1 x 1 mesh over NCCL at n^2, one step at 32 rounds and one
     with transportTol 1e-6 at the default depth, each bitwise against
-    erode's step on the card."""
+    the single-device step (`erode_step`, eager) on the card."""
     import soillib_tpu_torch as soil
     from soillib_tpu_torch import parallel as par
+    from soillib_tpu_torch.models.simulation import erode_step
 
     st = soil.ErosionState.zeros((n, n), height=terrain(n, 7, mesh.device),
                                  device=mesh.device)
@@ -2599,7 +2672,7 @@ def rank_nccl_1x1(mesh, n):
         got, ms = timed(lambda: par.sharded_erode(st, mesh, (0.1, 0.1, 4.0),
                                                   p))
         counts = rank_counts()
-        want = soil.erode(st, (0.1, 0.1, 4.0), p)
+        want = erode_step(st, (0.1, 0.1, 4.0), p)
         diffs = state_block_diffs(mesh, got, want)
         bad = [f for f, d in diffs.items() if not d[2]]
         if bad:
@@ -2631,6 +2704,7 @@ def rank_step_2x2(mesh, n, iters):
 
     import soillib_tpu_torch as soil
     from soillib_tpu_torch import parallel as par
+    from soillib_tpu_torch.models.simulation import _canonicalize, erode_step
     from soillib_tpu_torch.ops import cohort, sweep
     from soillib_tpu_torch.parallel import halo
 
@@ -2649,7 +2723,7 @@ def rank_step_2x2(mesh, n, iters):
         got = fn(block)
         sync_ranks(mesh)
     counts = rank_counts()
-    want = soil.make_erode_fn(p, scale)(state)
+    want = erode_step(_canonicalize(state, p), scale, p)
     diffs = state_block_diffs(mesh, got, want)
     del want, state
     checks = []
@@ -2893,6 +2967,8 @@ def phase_sharded(dem_keep):
                              f"{corr}, total rel {tot}, mean rel {mrel}")
     # The water, mass and momentum channels (tests/test_parallel.py's
     # fluvial bars); the mass channel of a state at rest is zero in both.
+    # The sharded flux is channel-last (W, H, 7), as the JAX package's.
+    got_f = np.moveaxis(got_f, -1, 0)
     fcorr = {ch: float(np.corrcoef(got_f[ch].ravel(), F[ch].ravel())[0, 1])
              for ch in (0, 1, 2, 3) if F[ch].std() > 0.0}
     ftot = abs(float(got_f[0].sum()) - float(F[0].sum())) / abs(
@@ -2935,6 +3011,303 @@ def phase_sharded(dem_keep):
         e, "accumulate_launches")
     paths["sharded solve_uniform 2x2 1024^2"] = total(e, "solve_launches")
     return paths
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: the compiled driver (make_erode_fn, erode, ErosionSim: one step
+# captured as a CUDA graph and replayed) against the eager erode_step
+# ---------------------------------------------------------------------------
+
+
+def release_compiled():
+    """Drops make_erode_fn's compiled steps (graphs, memory pools, buffers)
+    and hands torch's cached memory back to the card."""
+    import torch
+
+    from soillib_tpu_torch.models import simulation
+
+    simulation._compiled.clear()
+    torch.cuda.empty_cache()
+
+
+def compiled_configs():
+    """Phase 22's configurations: (label, what, make), make() -> (params,
+    state, scale, transport rounds a step for the profile)."""
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.examples import multiscale
+    from soillib_tpu_torch.examples.erosion import make_param
+
+    def bench(auto):
+        p = soil.ErosionParams()
+        p.trackAlbedo = True
+        if auto:
+            p.transportIterations, p.transportTol = 0, 1e-6
+        else:
+            p.transportIterations = 32
+        return (p, headline_state(4096, "cuda"), (0.078, 0.078, 4.0),
+                2 * (p.transportIterations or p.maxage - 2))
+
+    def noise_state(n):
+        return soil.ErosionState.zeros((n, n), height=soil.noise(
+            (n, n), soil.noise_t(seed=3.0, ext=(n, n))))
+
+    def cascade():
+        p = make_param()
+        return (p, noise_state(128), soil.level_scale(
+            multiscale.WORLD, multiscale.ZSCALE, (128, 128)),
+            2 * p.transportIterations)
+
+    def flagship(particles):
+        p = make_param()
+        if particles:
+            p.transportMethod = "particles"
+        return (p, noise_state(256), (20.0 / 256, 20.0 / 256, 4.0),
+                2 * (p.maxage - 1 if particles else p.transportIterations))
+
+    def field_static():
+        p = soil.ErosionParams()
+        p.transportIterations = 32
+        p.trackAlbedo = True
+        p.transportMethod = "field-static"
+        return (p, soil.ErosionState.zeros((4096, 4096),
+                                           height=terrain(4096, 23)),
+                (0.1, 0.1, 4.0), 64)
+
+    def quality():
+        return (quality_params(32), soil.ErosionState.zeros(
+            (1024, 1024), height=terrain(1024, 37)), (0.1, 0.1, 4.0), 64)
+
+    return [
+        ("a", "bench inputs 4096^2, 32 rounds, albedo on",
+         lambda: bench(False)),
+        ("b", "bench inputs 4096^2, auto (transportTol 1e-6, 510 rounds "
+              "at most)", lambda: bench(True)),
+        ("c", "the cascade's 128^2 level (its parameters, 64 rounds)",
+         cascade),
+        ("d", "flagship field step 256^2, 64 rounds", lambda: flagship(False)),
+        ("e", "flagship particle step 256^2, 8192 particles, maxage 256",
+         lambda: flagship(True)),
+        ("f", "field-static 4096^2, 32 rounds", field_static),
+        ("g", "CohortClosure(nodes=4, colors=8) 1024^2, 32 rounds", quality),
+    ]
+
+
+def bits_differ(a, b):
+    """The fields of two states whose bit patterns differ (NaN included)."""
+    import dataclasses
+
+    import torch
+
+    return [f.name for f in dataclasses.fields(a) if not torch.equal(
+        getattr(a, f.name).contiguous().view(torch.int32),
+        getattr(b, f.name).contiguous().view(torch.int32))]
+
+
+def peak_gb():
+    """[peak allocated, peak reserved] GB since the last reset, and resets
+    them (a graph's pool is reserved memory)."""
+    import torch
+
+    out = [torch.cuda.max_memory_allocated() / 1e9,
+           torch.cuda.max_memory_reserved() / 1e9]
+    torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def compiled_vs_eager(label, what, make, steps=4, seed=5,
+                      deterministic=False):
+    """One configuration of phase 22: `steps` eager erode_steps and
+    `steps` replays of the compiled step (one call a step) from the same
+    state and generator, held bitwise on every field after the last, with
+    the launch counters of each (counted from zero) and the generator's
+    state; then `steps` replays with donate=True, bitwise too. ms a step
+    of steps 2.. for each path (host clock between synchronises; the
+    compiled path's first call, which captures, apart), the idle share of
+    one profiled step of each (against the profiled and the unprofiled
+    wall time), warm-up, capture and instantiate seconds, and peak memory
+    with donate=False and with donate=True, of the first call (which
+    captures) and of the steps after it (allocated, and reserved: a
+    graph's pool is reserved). With
+    `deterministic` both paths run under
+    torch.use_deterministic_algorithms (the particle scatter's
+    index_add_ adds with atomics otherwise), and two eager runs without
+    it are compared as well. Returns (record, failures)."""
+    import torch
+
+    import soillib_tpu_torch as soil
+    from soillib_tpu_torch.core.device import seeded_generator
+    from soillib_tpu_torch.core.graphs import launch_counters
+    from soillib_tpu_torch.models import simulation
+
+    release_compiled()
+    p, state, scale, rounds = make()
+    counters = launch_counters()
+    fails = []
+    rec = {"what": what, "deterministic_algorithms": deterministic}
+
+    def eager_run():
+        key = seeded_generator("cuda", seed)
+        e, times = simulation._canonicalize(state, p), []
+        for _ in range(steps):
+            e, ms = timed(lambda e=e: simulation.erode_step(e, scale, p,
+                                                           key))
+            times.append(ms)
+        return e, key, times
+
+    if deterministic:
+        e0, _, _ = eager_run()
+        e1, _, _ = eager_run()
+        rec["eager_vs_eager_default"] = {"fields_differ": bits_differ(e0, e1),
+                                         "max_abs": state_diff(e0, e1)}
+        del e0, e1
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        zero_counts(*counters)
+        e, key, eager_ms = eager_run()
+        eager_counts = [nonzero(c) for c in counters]
+
+        zero_counts(*counters)
+        torch.cuda.reset_peak_memory_stats()
+        gen = seeded_generator("cuda", seed)
+        fn = soil.make_erode_fn(p, scale, 1)
+        c, first_ms = timed(lambda: fn(state, gen))
+        rec["peak_gb_first_call_donate_false"] = peak_gb()
+        compiled_ms = []
+        for _ in range(steps - 1):
+            c, ms = timed(lambda c=c: fn(c, gen))
+            compiled_ms.append(ms)
+        compiled_counts = [nonzero(x) for x in counters]
+        rec["peak_gb_donate_false"] = peak_gb()
+        (step,) = simulation._compiled.values()
+        stats = {k: getattr(step, k) for k in ("warmup_s", "capture_s",
+                                               "instantiate_s")}
+        del step
+        differ = bits_differ(c, e)
+        if differ:
+            fails.append(f"({label}) compiled differs from eager after "
+                         f"{steps} steps in {differ}: max abs "
+                         f"{state_diff(c, e):.3e}")
+        if compiled_counts != eager_counts:
+            fails.append(f"({label}) launch counters: compiled "
+                         f"{compiled_counts}, eager {eager_counts}")
+        if not torch.equal(gen.get_state(), key.get_state()):
+            fails.append(f"({label}) the generators differ after the steps")
+        prof_c = profiled_idle(lambda: fn(c, gen),
+                               f"({label}) compiled step", rounds)
+        prof_e = profiled_idle(
+            lambda: simulation.erode_step(e, scale, p, key),
+            f"({label}) eager step", rounds)
+        del c
+        release_compiled()
+
+        torch.cuda.reset_peak_memory_stats()
+        gen = seeded_generator("cuda", seed)
+        fn_d = soil.make_erode_fn(p, scale, 1, donate=True)
+        d, donate_ms = fn_d(state, gen), []
+        rec["peak_gb_first_call_donate_true"] = peak_gb()
+        for _ in range(steps - 1):
+            d, ms = timed(lambda d=d: fn_d(d, gen))
+            donate_ms.append(ms)
+        rec["peak_gb_donate_true"] = peak_gb()
+        differ = bits_differ(d, e)
+        if differ:
+            fails.append(f"({label}) donate=True differs from eager in "
+                         f"{differ}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del d, e, state
+    release_compiled()
+    eager_step = float(np.mean(eager_ms[1:]))
+    compiled_step = float(np.mean(compiled_ms))
+    for prof, wall in ((prof_c, compiled_step), (prof_e, eager_step)):
+        if prof["device_busy_ms"] is not None:
+            prof["idle_share_of_unprofiled_step"] = idle_share(
+                prof["device_busy_ms"], wall, f"({label}) step")
+    rec.update({
+        "bitwise_after_steps": steps if not fails else None,
+        "eager_ms": eager_ms, "compiled_first_call_ms": first_ms,
+        "compiled_ms": compiled_ms, "donate_ms": donate_ms,
+        "eager_ms_per_step": eager_step,
+        "compiled_ms_per_step": compiled_step, **stats,
+        "launches": eager_counts[0], "cohort_rounds": eager_counts[1],
+        "sweep_launches": eager_counts[2],
+        "compiled_launches": compiled_counts[0],
+        "compiled_sweep_launches": compiled_counts[2],
+        "idle_share_compiled": prof_c["idle_share"],
+        "idle_share_eager": prof_e["idle_share"],
+        "profiled_compiled": prof_c, "profiled_eager": prof_e})
+    log(f"  ({label}) {what}: {'bitwise equal' if not fails else 'FAILED'}"
+        f" after {steps} steps; ms a step (steps 2-{steps}) eager "
+        f"{eager_step:.3f}, compiled {compiled_step:.3f} (first call "
+        f"{first_ms:.1f}: warm-up {stats['warmup_s']:.2f} s, capture "
+        f"{stats['capture_s']:.2f} s, instantiate "
+        f"{stats['instantiate_s']:.2f} s), donate "
+        f"{np.mean(donate_ms):.3f}; idle (profiled, unprofiled) eager "
+        f"{prof_e['idle_share']}, "
+        f"{prof_e.get('idle_share_of_unprofiled_step')}; compiled "
+        f"{prof_c['idle_share']}, "
+        f"{prof_c.get('idle_share_of_unprofiled_step')}; peak GB "
+        f"(allocated, reserved) of the steps after the first call "
+        f"donate=False {rec['peak_gb_donate_false']}, donate=True "
+        f"{rec['peak_gb_donate_true']} (of the first call "
+        f"{rec['peak_gb_first_call_donate_false']}, "
+        f"{rec['peak_gb_first_call_donate_true']}); counters "
+        f"{eager_counts[:3]}"
+        + (f"; two eager runs without deterministic algorithms: "
+           f"{rec['eager_vs_eager_default']}" if deterministic else ""))
+    return rec, fails
+
+
+def state_copy_ms(n=4096):
+    """Device ms of one copy of the bench's 4096^2 state into buffers of
+    its own shape (what the captured step's write-back does each replay),
+    and its bytes."""
+    import torch
+
+    from soillib_tpu_torch.models import simulation
+
+    p = simulation.ErosionParams()
+    p.trackAlbedo = True
+    st = simulation._canonicalize(headline_state(n, "cuda"), p)
+    src = [getattr(st, f).contiguous() for f in simulation.FIELDS]
+    dst = [torch.empty_like(t) for t in src]
+
+    def copy():
+        for a, b in zip(dst, src):
+            a.copy_(b)
+
+    nbytes = sum(t.numel() * 4 for t in src)
+    return cuda_ms(copy, 10), nbytes
+
+
+def phase_compiled():
+    """Phase 22: every configuration of `compiled_configs` through
+    `compiled_vs_eager`; raises after all of them if any failed."""
+    out, fails = {}, []
+    # The kernels each configuration's compiled steps must launch.
+    need = {"a": ("fluvial", "debris"), "b": ("fluvial", "debris"),
+            "c": ("fluvial", "debris"), "d": ("fluvial", "debris"),
+            "e": (), "f": ("debris", "sweep"),
+            "g": ("fluvial,nodes=4", "debris")}
+    for label, what, make in compiled_configs():
+        rec, f = compiled_vs_eager(label, what, make,
+                                   deterministic=label == "e")
+        out[label] = rec
+        fails += f
+        got = {**rec["compiled_launches"],
+               **({"sweep": rec["compiled_sweep_launches"]["round"]}
+                  if rec["compiled_sweep_launches"] else {})}
+        missing = [k for k in need[label] if not got.get(k)]
+        if missing:
+            fails.append(f"({label}) the compiled steps launched no "
+                         f"{missing} kernel: {got}")
+    ms, nbytes = state_copy_ms()
+    out["state_copy_4096"] = {"ms": ms, "bytes": nbytes}
+    log(f"  a copy of the 4096^2 bench state (albedo on, compact rain and "
+        f"uplift): {nbytes / 1e9:.3f} GB read and written in {ms:.3f} ms")
+    if fails:
+        raise AssertionError("phase 22: " + "; ".join(fails))
+    return out
 
 
 def main():
@@ -3039,21 +3412,21 @@ def main():
     phase_quality_erode_check()
     # The chunk rule reads the driver's free memory: hand back what the
     # earlier phases left in torch's cache.
-    torch.cuda.empty_cache()
+    release_compiled()
     q_sim, _, q_launches, _, q_captured = phase_quality()
     log("where the time goes: one profiled 4096^2 quality step")
     phase_breakdown(q_sim, (("cohort_nodes_kernel_ms",
                              "cohort_round_nodes_kernel"),
                             ("cohort_kernel_ms", "cohort_rounds_kernel")))
     del q_sim
-    torch.cuda.empty_cache()
+    release_compiled()
     entries.append(kernel_entry("fluvial", {"fluvial": q_captured},
                                 q_launches, cohort.CohortClosure(nodes=4)))
     del q_captured
 
     log("phase 14: gradients through the kernels vs the plain path")
     phase_gradients()
-    torch.cuda.empty_cache()
+    release_compiled()
 
     log("phase 15: multiscale cascade [(128^2, 2048), (256^2, 4), "
         "(1000^2, 4)]")
@@ -3082,12 +3455,12 @@ def main():
         "dem_process": dem_ex["dem_process"]["launches"]["sweep"]}
 
     log("phase 18: closure variants of the cohort kernel")
-    torch.cuda.empty_cache()
+    release_compiled()
     t18 = time.perf_counter()
     entries += phase_variants()
     log(f"  phase 18 took {time.perf_counter() - t18:.1f} s")
 
-    torch.cuda.empty_cache()
+    release_compiled()
     t19 = time.perf_counter()
     log("phase 19: the Monte-Carlo particle path (transportMethod="
         "\"particles\"; dem_process --particles)")
@@ -3110,12 +3483,12 @@ def main():
         "GeoTIFF tiles of 1024^2, the native library)")
     phase_checkpoint(part_state)
     del part_state
-    torch.cuda.empty_cache()
+    release_compiled()
     phase_prefetch()
     phase_native()
     log(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
 
-    torch.cuda.empty_cache()
+    release_compiled()
     t21 = time.perf_counter()
     log("phase 21: sharded execution (soillib_tpu_torch.parallel), ranks "
         "spawned by parallel.launch")
@@ -3135,6 +3508,24 @@ def main():
                                  f"sharded path: {paths}")
     log(f"  sharded launches by path {json.dumps(paths)}")
     log(f"  phase 21 took {time.perf_counter() - t21:.1f} s")
+
+    release_compiled()
+    t22 = time.perf_counter()
+    log("phase 22: the compiled driver (one step captured as a CUDA graph, "
+        "replayed) against the eager erode_step, configurations (a)-(g)")
+    compiled = phase_compiled()
+    for label, rec in compiled.items():
+        if label == "state_copy_4096":
+            continue
+        path = f"compiled ({label}) {rec['what']}"
+        for key, n in rec["compiled_launches"].items():
+            by_name[f"cohort_round[{key}]"].setdefault(
+                "launches_by_path", {})[path] = n
+        if rec["compiled_sweep_launches"]:
+            by_name["transport_sweep[C=7]"].setdefault(
+                "launches_by_path", {})[path] = rec[
+                    "compiled_sweep_launches"]["round"]
+    log(f"  phase 22 took {time.perf_counter() - t22:.1f} s")
 
     # The round bounds weigh exp, division and sqrt by the probe's costs.
     costs = probe["fp32"]["costs"]

@@ -10,10 +10,9 @@ import torch
 
 from soillib_tpu_torch.core.device import _device
 from soillib_tpu_torch.models.params import ErosionParams
+from soillib_tpu_torch.models.simulation import FIELDS as STATE_FIELDS
 from soillib_tpu_torch.models.simulation import ErosionState
 from soillib_tpu_torch.ops.cohort import CohortClosure
-
-STATE_FIELDS = tuple(f.name for f in dataclasses.fields(ErosionState))
 
 
 def state_from_numpy(fields: dict, device) -> ErosionState:

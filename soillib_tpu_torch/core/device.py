@@ -3,6 +3,8 @@ caller asks for the CPU, never on the CPU as a silent fallback."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -38,3 +40,13 @@ def seeded_generator(device, seed: int = 0, offset: int = 0):
     (seed, offset); not the same numbers as either."""
     return torch.Generator(device=_device(device)).manual_seed(
         ((int(seed) & 0xFFFFFFFF) << 32) | (int(offset) & 0xFFFFFFFF))
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """A small constant tensor of `values` on `device`, made once and
+    shared by every caller, who must not write it. A tensor made from host
+    data is a copy from the host, which a CUDA-graph capture refuses, so
+    the step's constants come from here, made on its first (eager) call."""
+    return torch.tensor(values, dtype=dtype, device=device)

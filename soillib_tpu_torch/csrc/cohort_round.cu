@@ -785,7 +785,10 @@ __global__ void __launch_bounds__(NT1, 1)
 cohort_rounds_kernel(CohortParams p, int rounds,
                      const float* __restrict__ st,
                      const float* __restrict__ aux, float* __restrict__ G,
-                     float* __restrict__ out) {
+                     float* __restrict__ out, const int* __restrict__ done) {
+  // The adaptive exit on the device: once the flag is set, no block reads
+  // or writes anything (see `cohort_rounds_launch`).
+  if (done != nullptr && *done) return;
   using R = Rules<KIND, ALBEDO>;
   constexpr int S = NSTATE + R::C;
   extern __shared__ float smem[];
@@ -951,7 +954,11 @@ __global__ void __cluster_dims__(1, CLN, 1)
 __launch_bounds__(NTN, NODES_MIN_BLOCKS)
 cohort_round_nodes_kernel(CohortParams p, const float* __restrict__ st,
                           const float* __restrict__ aux,
-                          float* __restrict__ G, float* __restrict__ out) {
+                          float* __restrict__ G, float* __restrict__ out,
+                          const int* __restrict__ done) {
+  // Every block of the cluster reads the same flag, so all of them return
+  // before the first cluster barrier, or none does.
+  if (done != nullptr && *done) return;
   using R = Rules<KIND, ALBEDO>;
   constexpr int P = NSTATE + R::C;
   constexpr int FS = BXN * BYN;  // floats of one (channel, slot) plane
@@ -1183,7 +1190,7 @@ bool geometry_ok(const CohortParams& p, const CohortGeom& g) {
 template <int KIND, bool ALBEDO, int NODES>
 cudaError_t launch(const CohortParams& p, const CohortGeom& g,
                    const float* st, const float* aux, float* G, float* out,
-                   cudaStream_t stream) {
+                   const int* done, cudaStream_t stream) {
   if (!geometry_ok<KIND, ALBEDO, NODES>(p, g)) return cudaErrorInvalidValue;
   dim3 block(g.block_x, g.block_y);
   dim3 grid(g.grid_x, g.grid_y);
@@ -1195,14 +1202,14 @@ cudaError_t launch(const CohortParams& p, const CohortGeom& g,
         cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
     if (e != cudaSuccess) return e;
     cohort_rounds_kernel<KIND, ALBEDO><<<grid, block, g.smem, stream>>>(
-        p, g.rounds, st, aux, G, out);
+        p, g.rounds, st, aux, G, out, done);
   } else {
     cudaError_t e = cudaFuncSetAttribute(
         cohort_round_nodes_kernel<KIND, ALBEDO, NODES>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
     if (e != cudaSuccess) return e;
     cohort_round_nodes_kernel<KIND, ALBEDO, NODES>
-        <<<grid, block, g.smem, stream>>>(p, st, aux, G, out);
+        <<<grid, block, g.smem, stream>>>(p, st, aux, G, out, done);
   }
   return cudaGetLastError();
 }
@@ -1211,21 +1218,24 @@ template <int KIND, bool ALBEDO>
 cudaError_t launch_nodes(int nodes, const CohortParams& p,
                          const CohortGeom& g, const float* st,
                          const float* aux, float* G, float* out,
-                         cudaStream_t stream) {
+                         const int* done, cudaStream_t stream) {
   // The node counts the node rule runs with: face 1, 2 and 4; sign and
   // cluster 4; speed 2 (the others are not built into this library).
   switch (nodes) {
     case 1:
       if constexpr (RULE == FACE)
-        return launch<KIND, ALBEDO, 1>(p, g, st, aux, G, out, stream);
+        return launch<KIND, ALBEDO, 1>(p, g, st, aux, G, out, done,
+                                         stream);
       break;
     case 2:
       if constexpr (RULE == FACE || RULE == SPEED)
-        return launch<KIND, ALBEDO, 2>(p, g, st, aux, G, out, stream);
+        return launch<KIND, ALBEDO, 2>(p, g, st, aux, G, out, done,
+                                         stream);
       break;
     case 4:
       if constexpr (RULE == FACE || RULE == SIGN || RULE == CLUSTER)
-        return launch<KIND, ALBEDO, 4>(p, g, st, aux, G, out, stream);
+        return launch<KIND, ALBEDO, 4>(p, g, st, aux, G, out, done,
+                                         stream);
       break;
   }
   return cudaErrorInvalidValue;
@@ -1243,25 +1253,31 @@ extern "C" int cohort_variant() {
 
 // C entry point (bound with ctypes by ops/cohort.py). kind: 0 fluvial,
 // 1 debris; albedo: 0/1; nodes: 1, 2 or 4; g: the launch geometry,
-// g->rounds rounds (at most K1 for nodes = 1, else 1). Returns the CUDA
-// error of the launch (0 on success; cudaErrorInvalidValue for a geometry
-// that does not match this file).
+// g->rounds rounds (at most K1 for nodes = 1, else 1). done: null, or a
+// device int that the adaptive exit sets (ops/cohort.py `_advance_cuda`
+// under CUDA-graph capture, where the host cannot read the criterion):
+// while it is nonzero the launch does nothing, so the deposits stop at
+// the round where a host read of the criterion would have stopped them.
+// Returns the CUDA error of the launch (0 on success;
+// cudaErrorInvalidValue for a geometry that does not match this file).
 extern "C" int cohort_rounds_launch(int kind, int albedo, int nodes,
                                     const CohortParams* p,
                                     const CohortGeom* g, const float* st,
                                     const float* aux, float* G, float* out,
-                                    cudaStream_t stream) {
+                                    const int* done, cudaStream_t stream) {
   if (p->W <= 0 || p->H <= 0) return (int)cudaErrorInvalidValue;
   if (kind == FLUVIAL) {
     return (int)(albedo
-        ? launch_nodes<FLUVIAL, true>(nodes, *p, *g, st, aux, G, out, stream)
-        : launch_nodes<FLUVIAL, false>(nodes, *p, *g, st, aux, G, out,
+        ? launch_nodes<FLUVIAL, true>(nodes, *p, *g, st, aux, G, out, done,
+                                      stream)
+        : launch_nodes<FLUVIAL, false>(nodes, *p, *g, st, aux, G, out, done,
                                        stream));
   }
   if (kind == DEBRIS) {
     return (int)(albedo
-        ? launch_nodes<DEBRIS, true>(nodes, *p, *g, st, aux, G, out, stream)
-        : launch_nodes<DEBRIS, false>(nodes, *p, *g, st, aux, G, out,
+        ? launch_nodes<DEBRIS, true>(nodes, *p, *g, st, aux, G, out, done,
+                                     stream)
+        : launch_nodes<DEBRIS, false>(nodes, *p, *g, st, aux, G, out, done,
                                       stream));
   }
   return (int)cudaErrorInvalidValue;

@@ -97,12 +97,12 @@ def run(mesh, args):
     _sync(mesh)
     out["seconds"]["fluvial"] = time.perf_counter() - t0
     out["dropped"]["fluvial"] = dropped
-    F = par.gather_field(F.contiguous(), mesh)
+    F = par.gather_field(F.contiguous(), mesh, spec=("X", "Y", None))
     if mesh.rank != 0:
         return None, None
-    F = F.cpu().numpy()  # (7, W, H) channel-first
+    F = F.cpu().numpy()  # (W, H, 7) channel-last
     lines.append(f"fluvial MC: {out['seconds']['fluvial']:.1f}s, dropped "
-                 f"{dropped}, water flux mean {F[0].mean():.4f}")
+                 f"{dropped}, water flux mean {F[..., 0].mean():.4f}")
     if not np.isfinite(F).all():
         raise AssertionError("fluvial MC: non-finite flux")
     out["uniform"], out["fluvial"] = G, F
@@ -115,8 +115,7 @@ def main(argv=None):
     for line in lines or ():
         print(line)
     if args.out:
-        np.savez(args.out, uniform=out["uniform"],
-                 fluvial=np.moveaxis(out["fluvial"], 0, -1))
+        np.savez(args.out, uniform=out["uniform"], fluvial=out["fluvial"])
         print("wrote", args.out)
     return out
 

@@ -38,7 +38,7 @@ import math
 
 import torch
 
-from soillib_tpu_torch.core.device import seeded_generator
+from soillib_tpu_torch.core.device import device_constant, seeded_generator
 from soillib_tpu_torch.core.halo import NO_HALO
 from soillib_tpu_torch.models.params import ErosionParams
 from soillib_tpu_torch.ops import transport
@@ -187,8 +187,8 @@ def _color_masks(M, rule, speed, shape, halo=NO_HALO):
             )
         theta = torch.atan2(-speed[1], -speed[0])
         sect = torch.floor(theta * (4.0 / math.pi) + 0.5).to(torch.int64) % 8
-        d8x = torch.tensor([1, 1, 0, -1, -1, -1, 0, 1], device=dev)
-        d8y = torch.tensor([0, 1, 1, 1, 0, -1, -1, -1], device=dev)
+        d8x = device_constant((1, 1, 0, -1, -1, -1, 0, 1), torch.int64, dev)
+        d8y = device_constant((0, 1, 1, 1, 0, -1, -1, -1), torch.int64, dev)
         dx = d8x[sect]
         dy = d8y[sect]
         xi = torch.arange(W, device=dev)[:, None]
@@ -363,7 +363,7 @@ def _fluvial_terms(
     fD = p.frictionFactor / 8.0           # erosion.cu:70
     alpha = p.fluvialExponent
     R = p.rainfall
-    force = torch.tensor(p.force, dtype=torch.float32, device=dev)
+    force = device_constant(tuple(p.force), torch.float32, dev)
 
     grad = godunov_gradient(merged_height(layers), scale, p.exitSlope, halo)
     vel = momentum
@@ -871,7 +871,7 @@ def _fluvial_start(p, scale, Q, fields, rain, dis, cell):
         source_m[None] * alb[:, cell],
     ])
     # Deposits (w, m, vx, vy, a0, a1, a2) under attenuations (w, m, v).
-    sel = torch.tensor([0, 1, 2, 2, 1, 1, 1], device=spx.device)
+    sel = device_constant((0, 1, 2, 2, 1, 1, 1), torch.int64, spx.device)
 
     def advance(ind, dL, ds, v_safe, spx, spy, att, src):
         ax = -(g * gx[ind]) + nu * mx[ind] + fx
@@ -950,7 +950,7 @@ def _debris_start(p, scale, Q, fields, cell):
         source_d[None] * alb[:, cell],
     ])
     # Deposits (d, vx, vy, a0, a1, a2) under attenuations (d, v).
-    sel = torch.tensor([0, 1, 1, 0, 0, 0], device=spx.device)
+    sel = device_constant((0, 1, 1, 0, 0, 0), torch.int64, spx.device)
 
     def advance(ind, dL, ds, v_safe, spx, spy, att, src):
         gpx, gpy = gx[ind], gy[ind]

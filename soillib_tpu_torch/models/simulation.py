@@ -10,6 +10,12 @@ over an `ErosionState` dataclass of tensors. The legacy driver's `lrate`
 learning-rate blend is applied to the transported fields:
 new = (1 - lrate) * old + lrate * estimate.
 
+`erode_step` is the eager step. `make_erode_fn`, `erode` and `ErosionSim`
+run the compiled one, the counterpart of the JAX package's
+`_compiled_step`: one step captured as a CUDA graph on the card (a
+`core.graphs.CapturedStep`, cached on the parameters, the scale, `donate`
+and the state's shapes), replayed once a step.
+
 Entry points (`ErosionState.zeros`, `ErosionSim`) put the state on the
 card unless the caller passes `device="cpu"`; without a GPU they raise
 rather than fall back to the CPU.
@@ -17,11 +23,13 @@ rather than fall back to the CPU.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
 
 from soillib_tpu_torch.core.device import _device, seeded_generator
+from soillib_tpu_torch.core.graphs import CapturedStep
 from soillib_tpu_torch.core.halo import NO_HALO
 from soillib_tpu_torch.models.erosion import (
     mass_creep,
@@ -210,23 +218,123 @@ def _canonicalize(state: ErosionState, param: ErosionParams) -> ErosionState:
     return state.replace(**kw) if kw else state
 
 
-def make_erode_fn(param: ErosionParams, scale, steps: int = 1):
-    """Erosion driver: fn(state, key=None) -> state after `steps` coupled
-    steps. The parameters and scale are captured as they are now (the JAX
-    package compiles them in); later edits of `param` do not reach fn.
+FIELDS = tuple(f.name for f in dataclasses.fields(ErosionState))
+_TRACKED_ALBEDO = ("albedo_surface", "albedo_fluvial", "albedo_debris")
+
+# The compiled steps, most recently used last. Unlike an XLA executable a
+# captured graph holds memory: its buffers (one state) and its temporaries,
+# from one pool a device that all of them share (`_pools`: they replay one
+# at a time). So only COMPILED_STEPS of them stay alive; an evicted one
+# frees its buffers (a donated state that a caller still holds stays
+# valid) and its share of the pool.
+COMPILED_STEPS = 4
+_compiled = collections.OrderedDict()
+_pools = {}
+
+
+def _signature(state: ErosionState, param: ErosionParams) -> tuple:
+    """The device and every field's shape as the step sees it, after
+    `_canonicalize`: compact (3, 1, 1) albedo fields count as full size
+    when albedo is tracked (the step broadcasts them), so a compact state
+    and the full-size states after it share one compiled step; rainfall
+    and uplift may be (1, 1)."""
+    W, H = state.layers.shape[-2:]
+    shapes = []
+    for f in FIELDS:
+        shape = tuple(getattr(state, f).shape)
+        if (param.trackAlbedo and f in _TRACKED_ALBEDO
+                and shape[-2:] == (1, 1)):
+            shape = (3, W, H)
+        shapes.append(shape)
+    return str(state.device), tuple(shapes)
+
+
+def _compiled_step(param, frozen, scale, donate, state) -> CapturedStep:
+    """The compiled step of (params, scale, donate, the state's
+    signature), made on first use from `state`: the port's
+    `_compiled_step` (JAX: a jitted fori_loop cached on (params, scale,
+    steps, donate)). `param` is `frozen` thawed, which the step keeps. One
+    graph is one step, so `steps` is not in the key: a call of n steps
+    replays it n times."""
+    key = (frozen, scale, bool(donate), _signature(state, param))
+    step = _compiled.get(key)
+    if step is not None:
+        _compiled.move_to_end(key)
+        return step
+
+    def one_step(fields, generator):
+        out = erode_step(_canonicalize(ErosionState(**fields), param), scale,
+                         param, generator)
+        return {f: getattr(out, f) for f in FIELDS}
+
+    canon = _canonicalize(state, param)
+    pool = None
+    if state.device.type == "cuda":
+        pool = _pools.get(state.device)
+        if pool is None:
+            pool = _pools[state.device] = torch.cuda.graph_pool_handle()
+    try:
+        step = CapturedStep(one_step, {f: getattr(canon, f) for f in FIELDS},
+                            draws=param.transportMethod == "particles",
+                            pool=pool)
+    except BaseException:
+        # A failed capture leaves its pool recording: later captures on
+        # the device take a new one.
+        _pools.pop(state.device, None)
+        raise
+    _compiled[key] = step
+    while len(_compiled) > COMPILED_STEPS:
+        _compiled.popitem(last=False)
+    return step
+
+
+def _needs_grad(state: ErosionState) -> bool:
+    return torch.is_grad_enabled() and any(
+        getattr(state, f).requires_grad for f in FIELDS)
+
+
+def make_erode_fn(param: ErosionParams, scale, steps: int = 1,
+                  donate: bool = False):
+    """Compiled erosion driver: fn(state, key=None) -> state after `steps`
+    coupled steps. The parameters and scale are captured as they are now
+    (later edits of `param` do not reach fn). The step is compiled once
+    per (params, scale, donate, the state's field shapes and device) and
+    cached (`_compiled_step`): on the card, one `erode_step` captured as a
+    CUDA graph and replayed `steps` times; on the CPU, the same buffers
+    and copies around an eager step. `erode_step` itself is the eager
+    step.
+
     `key` (a torch.Generator on the state's device, or None: one seeded
-    from 0) serves every step in turn, as the JAX package's
-    make_erode_fn splits its key once a step."""
-    param = ErosionParams.from_frozen(param.freeze())
+    from 0) serves every step in turn and advances as the eager steps
+    would advance it; the field transports draw nothing.
+
+    donate=False returns a fresh state; the input is only read.
+    donate=True (the JAX package's buffer donation: one resident state,
+    not two) returns the compiled step's own buffers, which the next call
+    with the same parameters, scale and shapes overwrites, and takes them
+    back as input without a copy; use it in step loops like ErosionSim.
+
+    A state whose fields require grad, with grad enabled, runs the eager
+    `erode_step` loop (the same kernels, with their autograd Functions):
+    the reverse mode goes through the eager step, as the JAX package's
+    goes through its jit."""
+    frozen = param.freeze()
+    param = ErosionParams.from_frozen(frozen)
     scale = tuple(float(s) for s in scale)
     steps = int(steps)
+    draws = param.transportMethod == "particles"
 
     def fn(state, key=None):
-        state = _canonicalize(state, param)
         key = _particle_key(key, state, param)
-        for _ in range(steps):
-            state = erode_step(state, scale, param, key)
-        return state
+        if _needs_grad(state):
+            state = _canonicalize(state, param)
+            for _ in range(steps):
+                state = erode_step(state, scale, param, key)
+            return state
+        step = _compiled_step(param, frozen, scale, donate, state)
+        out = step({f: getattr(state, f) for f in FIELDS}, steps,
+                   key if draws else None, donate)
+        return ErosionState(**out)
 
     return fn
 
@@ -234,7 +342,8 @@ def make_erode_fn(param: ErosionParams, scale, steps: int = 1):
 def erode(state: ErosionState, scale, param: ErosionParams, steps: int = 1,
           key=None):
     """Reference-style convenience driver (`soil.erode(...)`,
-    erosion_gpu.py:105): runs `steps` coupled steps."""
+    erosion_gpu.py:105): runs `steps` coupled steps, compiled and cached
+    (`make_erode_fn`)."""
     return make_erode_fn(param, scale, steps)(state, key)
 
 
@@ -245,10 +354,13 @@ class ErosionSim:
         for _ in range(512):
             sim.step()
 
-    The state lives on `device` (the card unless "cpu" is asked for)."""
+    The state lives on `device` (the card unless "cpu" is asked for).
+    With donate=True the state is the compiled step's own buffers, and a
+    step copies no state at all (`make_erode_fn`)."""
 
     def __init__(self, shape, scale, param: ErosionParams = None,
-                 state: ErosionState = None, seed: int = 0, device="cuda"):
+                 state: ErosionState = None, seed: int = 0,
+                 donate: bool = False, device="cuda"):
         self.scale = tuple(float(s) for s in scale)
         self.param = param or ErosionParams()
         self.state = (state if state is not None
@@ -257,8 +369,9 @@ class ErosionSim:
         # it advances from step to step as the JAX package's ErosionSim
         # splits its key.
         self.key = seeded_generator(self.state.device, int(seed))
+        self.donate = donate
 
     def step(self, n: int = 1):
-        self.state = make_erode_fn(self.param, self.scale, steps=n)(
-            self.state, self.key)
+        self.state = make_erode_fn(self.param, self.scale, steps=n,
+                                   donate=self.donate)(self.state, self.key)
         return self.state

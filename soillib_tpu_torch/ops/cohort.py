@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from soillib_tpu_torch.core.graphs import count_on_device
 from soillib_tpu_torch.ops.sweep import HALO_K, _vjp_checkpointed
 from soillib_tpu_torch.ops.transport import stepsize_expected, stepsize_var
 
@@ -862,10 +863,10 @@ def tail_converged(live, gauge, remaining_rounds, tol, contractive=False):
     below the smallest normal float). Returns a 0-dim bool tensor on the
     inputs' device."""
     if contractive:
-        rem = torch.tensor(float(remaining_rounds), dtype=torch.float32,
-                           device=live.device)
-        tol32 = torch.tensor(tol, dtype=torch.float32, device=live.device)
-        return torch.all(live * rem <= tol32 * gauge)
+        # Python scalars, rounded to float32 by the ops as the JAX
+        # package's float32 arrays are: no tensor from host data, so the
+        # check can run inside a CUDA-graph capture.
+        return torch.all(live * float(remaining_rounds) <= gauge * float(tol))
     return torch.all(live < torch.finfo(torch.float32).tiny)
 
 
@@ -1104,13 +1105,13 @@ def _cohort_lib(variant: KernelVariant):
                    ctypes.POINTER(_CohortParams),
                    ctypes.POINTER(_CohortGeom),
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def cohort_rounds_cuda(st, aux, G, rules, Llen, rounds=1, out=None,
-                       nodes=1, closure=None):
+                       nodes=1, closure=None, done=None):
     """`rounds` cohort rounds of one color group in ONE launch of the
     Hopper kernel built for `closure` (None -> the env default; its
     `nodes` and `colors` are not read, `nodes` is): reads `st` (S, W, H)
@@ -1118,7 +1119,10 @@ def cohort_rounds_cuda(st, aux, G, rules, Llen, rounds=1, out=None,
     writes the state after the last round into `out` (allocated when
     None) and adds every round's carried arrivals into `G` in place, in
     round order. One node: 1 to ROUNDS_PER_LAUNCH rounds; `nodes` > 1 (the
-    N-node mixture, routed by `closure.node_rule`): one. Returns `out`."""
+    N-node mixture, routed by `closure.node_rule`): one. `done`, a 0-dim
+    int32 tensor on the card or None: while it is nonzero the launch
+    reads and writes nothing (the device-side adaptive exit). Returns
+    `out`."""
     kind = getattr(rules, "kind", None)
     if kind not in _RULE_KINDS:
         raise NotImplementedError(
@@ -1154,6 +1158,9 @@ def cohort_rounds_cuda(st, aux, G, rules, Llen, rounds=1, out=None,
         out = torch.empty_like(st)
     elif out.shape != st.shape or not out.is_contiguous() or out is st:
         raise ValueError("out must be a distinct contiguous tensor like st")
+    if done is not None and (done.dtype != torch.int32 or done.numel() != 1
+                             or done.device != st.device):
+        raise ValueError("done must be one int32 on the state's device")
     params = _kernel_params(rules, W, H, Llen)
     g = _CohortGeom(*geo.block, *geo.grid, geo.ring, geo.cluster,
                     geo.rounds, geo.smem)
@@ -1162,7 +1169,8 @@ def cohort_rounds_cuda(st, aux, G, rules, Llen, rounds=1, out=None,
     with torch.cuda.device(st.device):
         err = fn(_RULE_KINDS[kind], int(albedo), int(nodes),
                  ctypes.byref(params), ctypes.byref(g), st.data_ptr(),
-                 aux.data_ptr(), G.data_ptr(), out.data_ptr(), stream)
+                 aux.data_ptr(), G.data_ptr(), out.data_ptr(),
+                 None if done is None else done.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"cohort kernel launch failed: CUDA error {err}")
     key = launch_key(kind, nodes, variant.tag)
@@ -1187,16 +1195,35 @@ def cohort_advance_cuda(st, aux, rules, iters, Llen, tol=0.0, closure=None,
     one-color solve runs ROUNDS_PER_LAUNCH rounds per launch
     (`launch_rounds`); otherwise each round launches the kernel once per
     color group (`closure.colors`), in color order, into the same
-    deposits: the order of the plain batched round. `tol` > 0 reads the
-    adaptive exit criterion every TOL_CHECK_ROUNDS rounds, always at a
-    launch boundary (one host read each). Returns (advanced state,
-    deposits)."""
+    deposits: the order of the plain batched round. `tol` > 0 evaluates
+    the adaptive exit criterion every TOL_CHECK_ROUNDS rounds, always at a
+    launch boundary: read on the host (one read each), or, inside a
+    CUDA-graph capture, where the host cannot read it, into a device flag
+    that makes every later launch do nothing (`_advance`). Returns
+    (advanced state, deposits); after a device-side exit the state is
+    not the exit round's, the deposits are."""
     return _advance_cuda(st, aux, rules, iters, Llen, tol, closure, G)[:2]
 
 
 def _advance_cuda(st, aux, rules, iters, Llen, tol, closure, G=None):
     """`cohort_advance_cuda`, returning (state, deposits, rounds run): with
-    `tol` > 0 the rounds run stop at a TOL_CHECK_ROUNDS check."""
+    `tol` > 0 the rounds run stop at a TOL_CHECK_ROUNDS check; under
+    capture the host cannot know where, and the rounds run are counted
+    as all of them."""
+    capturing = (torch.cuda.is_available()
+                 and torch.cuda.is_current_stream_capturing())
+    return _advance(st, aux, rules, iters, Llen, tol, closure, G,
+                    cohort_rounds_cuda, capturing)
+
+
+def _advance(st, aux, rules, iters, Llen, tol, closure, G, launch,
+             device_exit):
+    """The kernel path's schedule, with `launch` (`cohort_rounds_cuda`'s
+    signature) for the launches. `device_exit` False: the exit criterion
+    is read on the host at each check, and the loop breaks. True: it is
+    OR-ed into a device flag (torch ops only) that every launch gets as
+    `done`; the launches after the check that sets it do nothing, so
+    the deposits stop at the same check and are the same bits."""
     cl = _check_closure(closure)
     st = as_stack(st).contiguous()
     aux = as_stack(aux).contiguous()
@@ -1210,25 +1237,50 @@ def _advance_cuda(st, aux, rules, iters, Llen, tol, closure, G=None):
         G = G.contiguous().clone()
     contractive = bool(getattr(rules, "contractive", False))
     k = ROUNDS_PER_LAUNCH if ncol == 1 and nnodes == 1 else 1
+    adaptive = bool(tol) and tol > 0.0
+    done = passed = None
+    if adaptive and device_exit:
+        done = torch.zeros((), dtype=torch.int32, device=st.device)
+        passed = torch.zeros((), dtype=torch.int32, device=st.device)
     # Ping-pong between two fresh buffers; the caller's state is only read.
     bufs = [torch.empty_like(st), None]
     i = 0
     for n, rounds in enumerate(launch_rounds(iters, k)):
-        if (tol and tol > 0.0 and i % TOL_CHECK_ROUNDS == 0
-                and bool(tail_converged(carried_live(st, cl),
-                                        deposit_gauge(G), float(iters) - i,
-                                        tol, contractive))):
-            break
+        if adaptive and i % TOL_CHECK_ROUNDS == 0:
+            converged = tail_converged(carried_live(st, cl), deposit_gauge(G),
+                                       float(iters) - i, tol, contractive)
+            if done is None:
+                if bool(converged):
+                    break
+            else:
+                done.bitwise_or_(converged)
+                passed.add_(1 - done)
         if bufs[n % 2] is None:
             bufs[n % 2] = torch.empty_like(st)
         out = bufs[n % 2]
         for j in range(ncol):
             g = slice(j * P, (j + 1) * P)
-            cohort_rounds_cuda(st[g], aux, G, rules, Llen, rounds,
-                               out=out[g], nodes=nnodes, closure=cl)
+            launch(st[g], aux, G, rules, Llen, rounds, out=out[g],
+                   nodes=nnodes, closure=cl,
+                   **({} if done is None else {"done": done}))
         st = out
         i += rounds
+    if passed is not None:
+        _count_exit(passed, rules, iters, k, ncol, nnodes, cl)
     return st, G, i
+
+
+def _count_exit(passed, rules, iters, k, ncol, nnodes, cl):
+    """The launch counters of a device-side exit: the rounds before it
+    are the checks passed times TOL_CHECK_ROUNDS (at most `iters`), in
+    ceil(rounds / k) launches a color group; reported to the captured
+    step in place of the launches enqueued."""
+    key = launch_key(rules.kind, nnodes, kernel_variant(cl, nnodes).tag)
+    rounds = torch.clamp(passed * TOL_CHECK_ROUNDS, max=int(iters))
+    launches = torch.div(rounds + (k - 1), k, rounding_mode="floor")
+    count_on_device(cohort_round_launches, key,
+                    ncol * len(launch_rounds(iters, k)), launches * ncol)
+    count_on_device(cohort_rounds, key, ncol * int(iters), rounds * ncol)
 
 
 def _plain_rounds(st, G, aux, rules, Llen, closure, n):

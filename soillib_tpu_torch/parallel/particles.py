@@ -34,6 +34,7 @@ import math
 
 import torch
 
+from soillib_tpu_torch.core.grid import check_channel_first
 from soillib_tpu_torch.models.erosion import (
     _EPS,
     _debris_start,
@@ -320,7 +321,7 @@ def _sharded_estimator(start, rounds, nA, scale, p, generator, mesh, slack,
     """The erosion estimators' common frame: global births kept in this
     block, the particles' start (`start(Q, cell)`, the single-device
     estimator's own), the rounds with migration; returns (the
-    channel-first (C, bw, bh) block of the flux, dropped over the mesh)."""
+    channel-last (bw, bh, C) block of the flux, dropped over the mesh)."""
     geom = _Geometry(mesh, bw, bh)
     sx, sy = float(scale[0]), float(scale[1])
     N = int(p.nSamples)
@@ -335,16 +336,27 @@ def _sharded_estimator(start, rounds, nA, scale, p, generator, mesh, slack,
     flux, dropped = _erosion_rounds(geom, rounds, R, ind, valid & alive, C,
                                     sel, nA, cap, math.sqrt(sx * sx + sy * sy),
                                     advance)
-    return flux.reshape(C, bw, bh), _sum_dropped(mesh, dropped + over)
+    # flux is a channel-first view of the cell-major (bw*bh, C) flux.
+    return flux.T.reshape(bw, bh, C), _sum_dropped(mesh, dropped + over)
+
+
+def _check_state(layers, momentum, albedo_surface):
+    """The JAX package's layout checks of the state's multichannel
+    fields: channel-first, or a ValueError that names the layout."""
+    check_channel_first("layers", layers, channels=(2,))
+    check_channel_first("momentum", momentum, channels=(2,))
+    check_channel_first("albedo_surface", albedo_surface, channels=(3,))
 
 
 def fluvial_particles_sharded(layers, rainfall, discharge, momentum,
                               albedo_surface, scale, p, generator, mesh,
                               slack=1.5):
     """Block-decomposed `_fluvial_particles` (erosion.cu:29-141) with
-    particle migration. The fields are this rank's blocks; returns (its
-    (7, bw, bh) channel-first block of the flux, dropped over the mesh).
-    Bitwise the single-device estimator on a 1 x 1 mesh on the CPU."""
+    particle migration. The fields are this rank's blocks, the state's
+    channel-first; returns (its (bw, bh, 7) channel-last block of the
+    flux, as the JAX package's, dropped over the mesh). Bitwise the
+    single-device estimator on a 1 x 1 mesh on the CPU."""
+    _check_state(layers, momentum, albedo_surface)
     bw, bh = discharge.shape
     fields = _particle_fields(layers, momentum, albedo_surface, scale, p,
                               ShardHalo(mesh))
@@ -359,9 +371,10 @@ def fluvial_particles_sharded(layers, rainfall, discharge, momentum,
 def debris_particles_sharded(layers, mass, momentum, albedo_surface, scale,
                              p, generator, mesh, slack=1.5):
     """Block-decomposed `_debris_particles` (erosion.cu:245-351) with
-    particle migration. Returns (this rank's (6, bw, bh) channel-first
-    block of the flux, dropped over the mesh); parity as
+    particle migration. Returns (this rank's (bw, bh, 6) channel-last
+    block of the flux, dropped over the mesh); layouts and parity as
     `fluvial_particles_sharded`."""
+    _check_state(layers, momentum, albedo_surface)
     bw, bh = mass.shape
     fields = _particle_fields(layers, momentum, albedo_surface, scale, p,
                               ShardHalo(mesh))

@@ -20,7 +20,8 @@ at any rounds per launch, colored solves, one N-node round). Sweep
 versions; whole tiled accumulations at rtol 1e-5 (phase 3's index_add
 uses atomics). The particle estimators and the host utilities have no
 kernel: their cases run the plain torch code on CUDA tensors, held
-against the CPU at the CPU tests' bars.
+against the CPU at the CPU tests' bars. The compiled driver (one step
+captured as a CUDA graph) is held bitwise to the eager step.
 """
 
 import math
@@ -1150,3 +1151,168 @@ def test_nccl_with_two_ranks_on_one_card_raises():
     with pytest.raises(ValueError, match="does not exist"):
         par.launch(ranks.run_cases, 1, transport="nccl",
                    devices=[f"cuda:{torch.cuda.device_count()}"], args=([],))
+
+
+# ---------------------------------------------------------------------------
+# The compiled driver: make_erode_fn, erode and ErosionSim replay one step
+# captured as a CUDA graph (core/graphs.py CapturedStep)
+# ---------------------------------------------------------------------------
+
+
+def _compiled_config(name):
+    """(params, state, scale) of a 256^2 step: the default step at 32
+    rounds, field-static, the particle step, the adaptive exit at the
+    default depth and CohortClosure(nodes=4)."""
+    from soillib_tpu_torch.models import simulation
+
+    simulation._compiled.clear()
+    p = ErosionParams()
+    p.transportIterations = 32
+    p.trackAlbedo = True
+    if name == "field-static":
+        p.transportMethod = "field-static"
+    elif name == "particles":
+        p.transportMethod = "particles"
+        p.nSamples = 8192
+        p.maxage = 64
+    elif name == "tol":
+        p.transportIterations = 0
+        p.transportTol = TOL
+    elif name == "nodes4":
+        p.transportIterations = 8
+        p.closure = soil.CohortClosure(nodes=4)
+    rng = np.random.default_rng(21)
+    x = np.linspace(0, 6, 256)[:, None]
+    y = np.linspace(0, 5, 256)[None, :]
+    h = (2.0 + 0.3 * np.sin(x) * np.cos(y)
+         + 0.01 * rng.normal(size=(256, 256))).astype(np.float32)
+    state = soil.ErosionState.zeros((256, 256), height=torch.from_numpy(h)
+                                    .cuda())
+    return p, state, (0.1, 0.1, 4.0)
+
+
+def _bitwise_states(a, b, what):
+    from soillib_tpu_torch.models import simulation
+
+    for f in simulation.FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert torch.equal(x.contiguous().view(torch.int32),
+                           y.contiguous().view(torch.int32)), f"{what}: {f}"
+
+
+def _counts():
+    from soillib_tpu_torch.core.graphs import launch_counters
+
+    return {k: dict(v) for k, v in zip(
+        ("launches", "rounds", "sweep", "sweep_rounds", "tile"),
+        launch_counters())}
+
+
+def _diff(a, b):
+    return {k: {n: a[k].get(n, 0) - b[k].get(n, 0) for n in a[k]
+                if a[k].get(n, 0) != b[k].get(n, 0)} for k in a}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["default", "field-static", "particles",
+                                  "tol", "nodes4"])
+def test_compiled_step_is_bitwise_the_eager_step_on_card(name):
+    """Two steps replayed from the captured step against two eager
+    `erode_step`s from the same state and seed: every field bit for bit,
+    the kernels' launch counters advanced per replay by what the eager
+    steps launch, and the particle generator left where the eager steps
+    leave it. The particle step runs under
+    torch.use_deterministic_algorithms on both paths: its scatter
+    (index_add_) adds with atomics otherwise, so two eager steps differ
+    in the last bits."""
+    _needs_card()
+    torch.use_deterministic_algorithms(name == "particles")
+    try:
+        _compiled_vs_eager(name)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _compiled_vs_eager(name):
+    from soillib_tpu_torch.core.device import seeded_generator
+    from soillib_tpu_torch.models import simulation
+
+    p, state, scale = _compiled_config(name)
+    c0 = _counts()
+    key = seeded_generator("cuda", 5)
+    eager = simulation._canonicalize(state, p)
+    for _ in range(2):
+        eager = simulation.erode_step(eager, scale, p, key)
+    torch.cuda.synchronize()
+    c1 = _counts()
+    gen = seeded_generator("cuda", 5)
+    fn = soil.make_erode_fn(p, scale, 2)
+    got = fn(state, gen)
+    torch.cuda.synchronize()
+    c2 = _counts()
+    _bitwise_states(got, eager, name)
+    assert _diff(c2, c1) == _diff(c1, c0)
+    assert any(_diff(c1, c0)["launches"].values()) or name == "particles"
+    if name == "field-static":
+        assert _diff(c1, c0)["sweep"]["round"] > 0
+    if name == "particles":
+        assert torch.equal(gen.get_state(), key.get_state())
+    (step,) = simulation._compiled.values()
+    assert step.graph is not None
+    # Two more replays from the returned state: the eager steps 3 and 4.
+    again = fn(got, gen)
+    eager = simulation.erode_step(simulation.erode_step(eager, scale, p, key),
+                                  scale, p, key)
+    _bitwise_states(again, eager, f"{name}, steps 3-4")
+
+
+@pytest.mark.cuda
+def test_compiled_step_with_a_host_read_raises_on_card(monkeypatch):
+    """A host read inside the step cannot be captured: the call raises
+    with the cause and does not run the step eagerly instead."""
+    _needs_card()
+    from soillib_tpu_torch.models import simulation
+
+    p, state, scale = _compiled_config("default")
+    creep = simulation.mass_creep
+    calls = []
+
+    def reads_the_host(delta, *a, **kw):
+        calls.append(float(delta.abs().sum()))  # a device-to-host read
+        return creep(delta, *a, **kw)
+
+    monkeypatch.setattr(simulation, "mass_creep", reads_the_host)
+    c0 = _counts()
+    with pytest.raises(RuntimeError):
+        soil.make_erode_fn(p, scale, 1)(state)
+    assert len(calls) == 1  # the warm-up's read; the capture's raised
+    assert not simulation._compiled
+    assert _counts() == c0  # nothing counted for the step that never ran
+    monkeypatch.undo()
+    out = soil.make_erode_fn(p, scale, 1)(state)  # a new capture works
+    assert bool(torch.isfinite(out.layers).all())
+
+
+@pytest.mark.cuda
+def test_compiled_driver_gradients_are_the_eager_steps_on_card():
+    """A state that requires grad runs the eager step: gradients through
+    make_erode_fn equal those through erode_step (rtol 1e-5: the
+    backward's scatters add with atomics)."""
+    _needs_card()
+    from soillib_tpu_torch.models import simulation
+
+    p, state, scale = _compiled_config("default")
+    p.transportIterations = 8
+
+    def grad(run):
+        h = state.layers.clone().requires_grad_(True)
+        out = run(state.replace(layers=h))
+        out.discharge.sum().backward()
+        return h.grad
+
+    g = grad(lambda s: soil.make_erode_fn(p, scale, 2)(s))
+    assert not simulation._compiled
+    want = grad(lambda s: simulation.erode_step(simulation.erode_step(
+        simulation._canonicalize(s, p), scale, p), scale, p))
+    _close(g, want, 1e-5, 1e-6 * float(want.abs().max()), "gradient")
+    assert float(g.abs().sum()) > 0.0

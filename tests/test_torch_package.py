@@ -60,6 +60,56 @@ def test_public_surface_matches_the_jax_package_but_the_queued_names():
         assert hasattr(soil.parallel, name), name
 
 
+# The parallel helpers whose arguments are torch's own (a process's mesh
+# in place of JAX's mesh shape and axis names, the tensor dims to split,
+# the group's transport and timeout): the port's parameter names.
+_TORCH_ARGUMENTS = {
+    "ShardHalo": ["mesh"],
+    "exchange_axis": ["arr", "mesh", "mesh_axis", "axis", "fill", "radius"],
+    "make_mesh": ["shape", "devices", "transport", "axis_names", "timeout"],
+    "shard_field": ["arr", "mesh", "spec"],
+}
+
+
+def _parameter_names(obj):
+    import inspect
+
+    fn = obj.__init__ if isinstance(obj, type) else obj
+    try:
+        names = list(inspect.signature(fn).parameters)
+    except (TypeError, ValueError):
+        return None
+    return [n for n in names if n != "self"]
+
+
+def test_signatures_match_the_jax_package():
+    """Every callable of both `__all__` lists takes the JAX package's
+    parameter names, in order, but for the port's deliberate
+    differences: a trailing `device=`, `generator=` for `key=` (a
+    torch.Generator for a JAX key), and the parallel helpers' torch
+    arguments (`_TORCH_ARGUMENTS`)."""
+    import soillib_tpu
+    import soillib_tpu.parallel
+
+    diffs = []
+    for jmod, tmod, torch_args in (
+            (soillib_tpu, soil, {}),
+            (soillib_tpu.parallel, soil.parallel, _TORCH_ARGUMENTS)):
+        for name in jmod.__all__:
+            want = _parameter_names(getattr(jmod, name))
+            got = _parameter_names(getattr(tmod, name))
+            if want is None or not callable(getattr(jmod, name)):
+                continue
+            if name in torch_args:
+                want = torch_args[name]
+            else:
+                got = ["key" if n == "generator" else n for n in got
+                       if n != "device"]
+            if got != want:
+                diffs.append((name, want, got))
+    assert diffs == []
+
+
 def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")

@@ -56,10 +56,10 @@ def test_dem_mc_pod_virtual_ranks(capsys, tmp_path):
         state.layers, state.rainfall, state.discharge, state.momentum,
         state.albedo_surface, (0.5, 0.5, 2.0), dem_mc_pod.fluvial_params(N),
         seeded_generator("cpu", 1)).reshape(7, 32, 32).numpy()
+    got = out["fluvial"]  # (W, H, 7), channel-last as the JAX package's
     for c in (0, 1, 2, 3):
         if F[c].std() == 0.0:  # no mass on a state at rest: both zero
-            np.testing.assert_array_equal(out["fluvial"][c], F[c])
+            np.testing.assert_array_equal(got[..., c], F[c])
         else:
-            assert _corr(out["fluvial"][c], F[c]) >= 0.99, c
-    np.testing.assert_allclose(out["fluvial"][0].sum(), F[0].sum(),
-                               rtol=5e-3)
+            assert _corr(got[..., c], F[c]) >= 0.99, c
+    np.testing.assert_allclose(got[..., 0].sum(), F[0].sum(), rtol=5e-3)

@@ -179,7 +179,7 @@ def case_fluvial(mesh, fields, frozen, scale, draws):
     with injected_births(draws):
         F, dropped = par.fluvial_particles_sharded(
             *args, scale, p, seeded_generator("cpu"), mesh, slack=2.0)
-    return {"got": _gather(mesh, F), "dropped": dropped}
+    return {"got": _gather(mesh, F, CL), "dropped": dropped}
 
 
 def case_debris(mesh, fields, frozen, scale, draws):
@@ -189,7 +189,7 @@ def case_debris(mesh, fields, frozen, scale, draws):
     with injected_births(draws):
         F, dropped = par.debris_particles_sharded(
             *args, scale, p, seeded_generator("cpu"), mesh, slack=2.0)
-    return {"got": _gather(mesh, F), "dropped": dropped}
+    return {"got": _gather(mesh, F, CL), "dropped": dropped}
 
 
 def run_cases(mesh, cases):
@@ -204,14 +204,14 @@ def run_cases(mesh, cases):
 
 def single_fluvial(fields, frozen, scale, draws):
     """The port's single-device fluvial estimator with injected births,
-    (7, W, H)."""
+    channel-last (W, H, 7) as the sharded estimators return it."""
     st = state_from_numpy(fields, "cpu")
     with injected_births(draws):
         F = ero._fluvial_particles(
             st.layers, st.rainfall, st.discharge, st.momentum,
             st.albedo_surface, scale, params_from_frozen(frozen),
             seeded_generator("cpu"))
-    return F.reshape(7, *st.discharge.shape).numpy()
+    return F.T.reshape(*st.discharge.shape, 7).numpy()
 
 
 def single_debris(fields, frozen, scale, draws):
@@ -220,7 +220,7 @@ def single_debris(fields, frozen, scale, draws):
         F = ero._debris_particles(
             st.layers, st.mass, st.momentum, st.albedo_surface, scale,
             params_from_frozen(frozen), seeded_generator("cpu"))
-    return F.reshape(6, *st.mass.shape).numpy()
+    return F.T.reshape(*st.mass.shape, 6).numpy()
 
 
 def single_particles(flow, source, decay, scale, count, draws):
