@@ -54,7 +54,15 @@ call of rank 0 bitwise), then the compiled driver (phase 22: make_erode_fn
 replaying one step captured as a CUDA graph, against the eager erode_step,
 bitwise with equal launch counters, in seven configurations from the
 bench's 4096^2 to the cascade's 128^2 level and the flagship's particle
-step; ms a step, idle share, capture time and peak memory of both). The
+step; ms a step, idle share, capture time and peak memory of both), then
+the study harnesses of soillib_tpu_torch.benchmarks (phase 23: the
+transport-parity harness at 256^2 on the noise and steep terrains, 4
+seeds, cold and warm, 4 coupled steps x 2, its keys the JAX harness's,
+its metrics finite and every eager field solve bitwise against the plain
+rounds, and the age-deficit probe's 126 one-round kernel launches at
+48^2 bitwise against the plain rounds' trace; phase 24: the weak-scaling
+harness with 1 and 4 ranks sharing the card, block 1024, 32 rounds, the
+4 ranks' timed step bitwise against the single-device step). The
 erosion paths of every phase run the compiled driver; where a phase
 records a kernel's inputs it calls the eager erode_step. Each path's
 kernel launches
@@ -3310,6 +3318,170 @@ def phase_compiled():
     return out
 
 
+def record_solves():
+    """While active, the inputs and deposits of every eager cohort solve
+    (`ops/cohort.py` `run_cohort`, outside a CUDA-graph capture, whose
+    results do not exist yet) are appended to the returned list; call
+    the list's `stop` to end recording."""
+    import torch
+
+    from soillib_tpu_torch.ops import cohort
+
+    run = cohort.run_cohort
+    solves = []
+
+    def spy(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
+        out = run(st0, aux, rules, iters, Llen, closure, tol)
+        if not (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            solves.append((cohort.as_stack(st0).clone(),
+                           cohort.as_stack(aux).clone(), rules, int(iters),
+                           Llen, closure, tol, out.clone()))
+        return out
+
+    def stop():
+        cohort.run_cohort = run
+
+    cohort.run_cohort = spy
+    return solves, stop
+
+
+def leaves(tree, prefix=()):
+    """(key path, value) of every leaf of a nested dict."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    return [kv for k, v in tree.items() for kv in leaves(v, prefix + (k,))]
+
+
+def phase_parity(size=256, terrains=("noise", "steep"), seeds=4, steps=4,
+                 n_rep=2, probe_size=48):
+    """The transport-parity harness (soillib_tpu_torch.benchmarks.parity)
+    at `size`, cold and warm, `steps` coupled steps with `n_rep` particle
+    runs: every metric finite, the JAX harness's keys, each eager field
+    solve of the phase (kernel 1) bitwise against the plain rounds on its
+    inputs; then the age-deficit probe's per-round trace at `probe_size`
+    (one kernel launch a round) bitwise against the plain rounds'."""
+    import torch
+
+    from soillib_tpu_torch.benchmarks import age_deficit_probe as adp
+    from soillib_tpu_torch.benchmarks import parity as pp
+    from soillib_tpu_torch.ops import cohort
+
+    args = pp.parse_args(["--size", str(size), "--terrains",
+                          ",".join(terrains), "--seeds", str(seeds),
+                          "--steps", str(steps)])
+    zero_counts(cohort.cohort_round_launches, cohort.cohort_rounds)
+    solves, stop = record_solves()
+    try:
+        report, ms = timed(lambda: pp.run(args, n_rep=n_rep,
+                                          log=lambda s: log("  " + s)))
+    finally:
+        stop()
+    launches = nonzero(cohort.cohort_round_launches)
+    if pp.key_paths(report) != pp.key_paths(pp.report_skeleton(terrains)):
+        raise AssertionError("parity: the report's keys are not the JAX "
+                             "harness's")
+    bad = [k for k, v in leaves(report) if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"parity: non-finite metrics {bad}")
+    if not (launches.get("fluvial") and launches.get("debris")):
+        raise AssertionError(f"parity: kernel 1 not launched: {launches}")
+    # Every phase comparison's field solve, and the compiled steps'
+    # eager warm-ups.
+    if len(solves) < 4 * len(terrains):
+        raise AssertionError(f"parity: {len(solves)} eager solves recorded")
+    t0 = time.perf_counter()
+    err = 0.0
+    for i, (st, aux, rules, iters, Llen, closure, tol, got) in enumerate(
+            solves):
+        _, want = cohort.cohort_advance_reference(st, aux, rules, iters,
+                                                  Llen, closure=closure,
+                                                  tol=tol)
+        err = max(err, bitwise_err(f"parity solve {i} ({rules.kind}, "
+                                   f"{iters} rounds)", got, want))
+    log(f"  parity {size}^2 ({','.join(terrains)}; {seeds} seeds, "
+        f"{steps} coupled steps x {n_rep}): {ms / 1e3:.1f} s; kernel 1 "
+        f"launches {launches}; {len(solves)} eager field solves bitwise "
+        f"against the plain rounds ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    st = adp.warm_state(probe_size, "cuda")
+    rain = adp.patch_rain(probe_size, "cuda")
+    import soillib_tpu_torch as soil
+
+    p = soil.param_t()
+    p.maxage, p.timeStep = 128, 500.0
+    zero_counts(cohort.cohort_round_launches, cohort.cohort_rounds)
+    trace_k, G_k = adp.field_trace(st, rain, adp.SCALE, p)
+    torch.cuda.synchronize()
+    probe_launches = nonzero(cohort.cohort_round_launches)
+    if probe_launches != {"fluvial": adp.ROUNDS}:
+        raise AssertionError(f"age probe: launches {probe_launches}, "
+                             f"expected one a round ({adp.ROUNDS})")
+    trace_p, G_p = adp.field_trace(st, rain, adp.SCALE, p, plain=True)
+    bitwise_err("age probe per-round trace", torch.from_numpy(trace_k),
+                torch.from_numpy(trace_p))
+    bitwise_err("age probe deposits", G_k, G_p)
+    log(f"  age probe {probe_size}^2: {adp.ROUNDS} rounds, one launch "
+        f"each, trace and deposits bitwise against the plain rounds "
+        f"(cumulative water flux {float(trace_k.sum()):.4f}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    return {"launches": launches, "probe_launches": probe_launches,
+            "seconds": ms / 1e3}
+
+
+def phase_scaling(block=1024, iters=32, steps=2):
+    """The weak-scaling harness (soillib_tpu_torch.benchmarks.scaling) with
+    1 and 4 ranks sharing the card over host-staged gloo: the 4 ranks'
+    timed step gathered against the single-device eager step on the same
+    2*block x 2*block grid, bitwise; cell-steps/s of both under the
+    card-sharing caveat. Returns kernel 1's launches in the 4 ranks'
+    timed call, summed over the ranks."""
+    import torch
+
+    from soillib_tpu_torch import parallel as par
+    from soillib_tpu_torch.benchmarks import scaling
+    from soillib_tpu_torch.core.device import seeded_generator
+    from soillib_tpu_torch.models.simulation import (
+        FIELDS,
+        _canonicalize,
+        erode_step,
+    )
+
+    t0 = time.perf_counter()
+    rate1, _ = scaling.measure(1, block, steps, iters, "gloo", ["cuda:0"])
+    t1 = time.perf_counter()
+    rate4, res = scaling.measure(4, block, steps, iters, "gloo",
+                                 ["cuda:0"] * 4, keep=True)
+    log(f"  launches: 1 rank {t1 - t0:.1f} s, 4 ranks "
+        f"{time.perf_counter() - t1:.1f} s")
+    for n, rate in ((1, rate1), (4, rate4)):
+        log("  " + json.dumps(scaling.line(n, rate, (1, rate1),
+                                           scaling.CAVEAT)))
+    got = scaling.global_state(res, par.factor2(4))
+    n = 2 * block
+    state, scale, param = scaling.problem(n, n, iters, "cuda")
+    state = _canonicalize(state, param)
+    key = seeded_generator("cuda", 0)
+    for _ in range(2 * steps):
+        state = erode_step(state, scale, param, key)
+    err = 0.0
+    for name in FIELDS:
+        err = max(err, bitwise_err(f"scaling 4 ranks, {name}",
+                                   torch.from_numpy(got[name]).cuda(),
+                                   getattr(state, name)))
+    launches = {}
+    for r in res:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    if not (launches.get("fluvial") and launches.get("debris")):
+        raise AssertionError(f"scaling: kernel 1 not launched: {launches}")
+    log(f"  4 ranks' timed step ({n}^2, {steps} steps) bitwise equal to "
+        f"the single-device step; kernel 1 launches over the ranks "
+        f"{launches}")
+    return launches
+
+
 def main():
     import torch
 
@@ -3526,6 +3698,29 @@ def main():
                 "launches_by_path", {})[path] = rec[
                     "compiled_sweep_launches"]["round"]
     log(f"  phase 22 took {time.perf_counter() - t22:.1f} s")
+
+    release_compiled()
+    t23 = time.perf_counter()
+    log("phase 23: the transport-parity harness 256^2 (noise, steep; 4 "
+        "seeds; cold, warm, 4 coupled steps x 2) and the age-deficit probe "
+        "48^2")
+    parity = phase_parity()
+    for kind in ("fluvial", "debris"):
+        by_name[f"cohort_round[{kind}]"].setdefault("launches_by_path", {})[
+            "parity 256^2 (phase 23)"] = parity["launches"][kind]
+    by_name["cohort_round[fluvial]"]["launches_by_path"][
+        "age probe 48^2 (phase 23)"] = parity["probe_launches"]["fluvial"]
+    log(f"  phase 23 took {time.perf_counter() - t23:.1f} s")
+
+    release_compiled()
+    t24 = time.perf_counter()
+    log("phase 24: the weak-scaling harness, 1 and 4 ranks sharing the "
+        "card (block 1024, 32 rounds)")
+    scaled = phase_scaling()
+    for kind in ("fluvial", "debris"):
+        by_name[f"cohort_round[{kind}]"].setdefault("launches_by_path", {})[
+            "scaling 2 x 2 sharing the card (phase 24)"] = scaled[kind]
+    log(f"  phase 24 took {time.perf_counter() - t24:.1f} s")
 
     # The round bounds weigh exp, division and sqrt by the probe's costs.
     costs = probe["fp32"]["costs"]

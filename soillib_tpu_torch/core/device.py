@@ -32,14 +32,28 @@ def as_field(x, device=None, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(a, dtype=dtype, device=_device(device or "cuda"))
 
 
+_M64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """splitmix64's finalizer: every bit of the result depends on every
+    bit of `x`."""
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
 def seeded_generator(device, seed: int = 0, offset: int = 0):
-    """A torch.Generator on `device` seeded from (seed, offset) as
-    `(seed << 32) | offset` (each taken mod 2^32): the port's stand-in for
-    the JAX package's `fold_in(PRNGKey(seed), offset)` keys and the
-    reference's curand_init(seed, n, offset) streams. Deterministic in
-    (seed, offset); not the same numbers as either."""
-    return torch.Generator(device=_device(device)).manual_seed(
-        ((int(seed) & 0xFFFFFFFF) << 32) | (int(offset) & 0xFFFFFFFF))
+    """A torch.Generator on `device` seeded from (seed, offset) (each taken
+    mod 2^32): the port's stand-in for the JAX package's
+    `fold_in(PRNGKey(seed), offset)` keys and the reference's
+    curand_init(seed, n, offset) streams. Deterministic in (seed,
+    offset); not the same numbers as either. The 64-bit key `(seed << 32)
+    | offset` is mixed before seeding, because the CPU's generator
+    (mt19937) keeps only the low 32 bits of its seed: unmixed, every seed
+    of one offset drew the same numbers there."""
+    key = ((int(seed) & 0xFFFFFFFF) << 32) | (int(offset) & 0xFFFFFFFF)
+    return torch.Generator(device=_device(device)).manual_seed(_mix64(key))
 
 
 @functools.lru_cache(maxsize=None)

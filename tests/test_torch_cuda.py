@@ -21,7 +21,10 @@ versions; whole tiled accumulations at rtol 1e-5 (phase 3's index_add
 uses atomics). The particle estimators and the host utilities have no
 kernel: their cases run the plain torch code on CUDA tensors, held
 against the CPU at the CPU tests' bars. The compiled driver (one step
-captured as a CUDA graph) is held bitwise to the eager step.
+captured as a CUDA graph) is held bitwise to the eager step. The study
+harnesses (soillib_tpu_torch.benchmarks) run on the card: the parity
+harness's field solves bitwise against the plain rounds, the scaling
+harness's shared-card step bitwise against one device.
 """
 
 import math
@@ -1316,3 +1319,79 @@ def test_compiled_driver_gradients_are_the_eager_steps_on_card():
         simulation._canonicalize(s, p), scale, p), scale, p))
     _close(g, want, 1e-5, 1e-6 * float(want.abs().max()), "gradient")
     assert float(g.abs().sum()) > 0.0
+
+
+# ---------------------------------------------------------------------------
+# The study harnesses (soillib_tpu_torch.benchmarks) on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_parity_field_half_kernels_match_plain_on_card(monkeypatch):
+    """The parity harness at 48^2 (steep, 2 seeds, cold and warm, one
+    coupled step x 2): the JAX harness's keys, finite metrics, and each
+    eager field solve it ran (kernel 1) bitwise equal to the plain rounds
+    on the same inputs."""
+    _needs_card()
+    from soillib_tpu_torch.benchmarks import parity as pp
+
+    run = cohort.run_cohort
+    solves = []
+
+    def spy(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
+        out = run(st0, aux, rules, iters, Llen, closure, tol)
+        if not torch.cuda.is_current_stream_capturing():
+            solves.append((cohort.as_stack(st0).clone(),
+                           cohort.as_stack(aux).clone(), rules, iters, Llen,
+                           closure, tol, out.clone()))
+        return out
+
+    monkeypatch.setattr(cohort, "run_cohort", spy)
+    n0 = dict(cohort.cohort_round_launches)
+    report = pp.run(pp.parse_args(["--size", "48", "--terrains", "steep",
+                                   "--seeds", "2", "--steps", "1",
+                                   "--maxage", "32"]), n_rep=2,
+                    log=lambda s: None)
+    monkeypatch.undo()
+    assert pp.key_paths(report) == pp.key_paths(pp.report_skeleton(["steep"]))
+    for path in pp.key_paths(report):
+        v = report
+        for k in path:
+            v = v[k]
+        assert np.isfinite(v), path
+    for kind in ("fluvial", "debris"):
+        assert cohort.cohort_round_launches[kind] > n0.get(kind, 0)
+    assert len(solves) >= 4
+    for st, aux, rules, iters, Llen, closure, tol, got in solves:
+        _, want = cohort.cohort_advance_reference(st, aux, rules, iters, Llen,
+                                                  closure=closure, tol=tol)
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                      want.cpu().numpy().view(np.int32))
+
+
+@pytest.mark.cuda
+def test_scaling_two_ranks_share_the_card_bitwise():
+    """The weak-scaling harness's timed step on 2 ranks sharing the card
+    (host-staged gloo), gathered, equals the single-device eager step on
+    the same 128 x 256 grid bitwise; kernel 1 ran in every rank."""
+    _needs_card()
+    from soillib_tpu_torch import parallel as par
+    from soillib_tpu_torch.benchmarks import scaling
+    from soillib_tpu_torch.core.device import seeded_generator
+    from soillib_tpu_torch.models import simulation
+
+    rate, res = scaling.measure(2, 128, 1, 8, "gloo", ["cuda:0"] * 2,
+                                keep=True)
+    assert rate > 0.0
+    for r in res:
+        assert r["launches"]["fluvial"] > 0 and r["launches"]["debris"] > 0
+    got = scaling.global_state(res, par.factor2(2))
+    state, scale, param = scaling.problem(128, 256, 8, "cuda")
+    state = simulation._canonicalize(state, param)
+    key = seeded_generator("cuda", 0)
+    for _ in range(2):
+        state = simulation.erode_step(state, scale, param, key)
+    for name in simulation.FIELDS:
+        want = getattr(state, name).cpu().numpy()
+        np.testing.assert_array_equal(got[name].view(np.int32),
+                                      want.view(np.int32), err_msg=name)

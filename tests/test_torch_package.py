@@ -19,8 +19,9 @@ torch.set_num_threads(1)
 
 
 def test_import_pulls_in_no_jax():
-    """Importing the package and every one of its modules and examples
-    pulls in neither JAX nor the JAX package."""
+    """Importing the package and every one of its modules, examples and
+    study harnesses pulls in neither JAX nor the JAX package (and runs
+    none of them: the subprocess has a time limit)."""
     code = (
         "import importlib, pkgutil, sys, soillib_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
@@ -33,6 +34,9 @@ def test_import_pulls_in_no_jax():
         "    assert 'soillib_tpu_torch.parallel.' + m in names, m\n"
         "for m in ('erosion_pod', 'dem_mc_pod'):\n"
         "    assert 'soillib_tpu_torch.examples.' + m in names, m\n"
+        "for m in ('parity', 'residual_probe', 'age_deficit_probe',\n"
+        "          'scaling'):\n"
+        "    assert 'soillib_tpu_torch.benchmarks.' + m in names, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'soillib_tpu' or m.startswith('soillib_tpu.')]\n"
         "print(len(names), bad)\n"
