@@ -62,7 +62,12 @@ its metrics finite and every eager field solve bitwise against the plain
 rounds, and the age-deficit probe's 126 one-round kernel launches at
 48^2 bitwise against the plain rounds' trace; phase 24: the weak-scaling
 harness with 1 and 4 ranks sharing the card, block 1024, 32 rounds, the
-4 ranks' timed step bitwise against the single-device step). The
+4 ranks' timed step bitwise against the single-device step), then
+phase 25: the bench at the JAX headline's capacity configuration (8192^2,
+albedo off, 32 rounds, 4 timed steps) in-process, its keys and its
+1200-byte yardstick, and the cohort kernel built with ALBEDO=false
+(fluvial and debris) held bitwise against the plain round at 1 and 16
+rounds on that run's own cohort inputs and timed per round there. The
 erosion paths of every phase run the compiled driver; where a phase
 records a kernel's inputs it calls the eager erode_step. Each path's
 kernel launches
@@ -3482,6 +3487,110 @@ def phase_scaling(block=1024, iters=32, steps=2):
     return launches
 
 
+def record_first_solves():
+    """While active, the inputs of the first eager cohort solve of each
+    rule set ({kind: (state, aux, rules, Llen)}), copied to host memory
+    as the solve runs (a compiled step's warm-up runs eagerly; its
+    capture and replays call no Python); call `stop` to end recording."""
+    import torch
+
+    from soillib_tpu_torch.ops import cohort
+
+    run = cohort.run_cohort
+    first = {}
+
+    def spy(st0, aux, rules, iters, Llen, closure=None, tol=0.0):
+        if rules.kind not in first and not (
+                torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            first[rules.kind] = (cohort.as_stack(st0).cpu(),
+                                 cohort.as_stack(aux).cpu(), rules, Llen)
+        return run(st0, aux, rules, iters, Llen, closure, tol)
+
+    def stop():
+        cohort.run_cohort = run
+
+    cohort.run_cohort = spy
+    return first, stop
+
+
+def phase_headline_8192(n=8192, iters=32, steps=4):
+    """Phase 25: the bench at the JAX headline's capacity configuration
+    (n^2, albedo off, `iters` rounds, `steps` timed steps) in this
+    process: its keys, the 1200-byte yardstick, a finite positive value;
+    then the cohort kernel built with ALBEDO=false, fluvial and debris,
+    held bitwise against the plain round at 1 and 16 rounds on that run's
+    own cohort inputs (its first step, the compiled step's eager warm-up)
+    and timed per round there. Returns the two kernel entries (launches:
+    the bench's) and the run's peak memory."""
+    import torch
+
+    from soillib_tpu_torch import bench
+    from soillib_tpu_torch.ops import cohort
+    from soillib_tpu_torch.ops import fp32_chain as fc
+
+    first, stop = record_first_solves()
+    zero_counts(fc.fp32_chain_launches, cohort.cohort_round_launches,
+                cohort.cohort_rounds)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        line, ms = timed(lambda: bench.main(
+            ["--size", str(n), "--albedo", "off", "--iters", str(iters),
+             "--steps", str(steps)]))
+    finally:
+        stop()
+    launches = nonzero(cohort.cohort_round_launches)
+    probe = nonzero(fc.fp32_chain_launches)
+    peak = {"bench": peak_gb()}
+    keys = {"metric", "value", "unit", "vs_baseline", "hbm_sol",
+            "compute_sol", "bw_bytes_per_s", "bytes_per_cell_step",
+            "fp32_ops_per_s", "fp32_ops_per_cell_step", "device"}
+    if set(line) != keys:
+        raise AssertionError(f"bench {n}^2 albedo off: keys {sorted(line)}")
+    if not (math.isfinite(line["value"]) and line["value"] > 0):
+        raise AssertionError(f"bench {n}^2 albedo off: value {line['value']}")
+    if line["bytes_per_cell_step"] != 1200.0:
+        raise AssertionError(f"bench {n}^2 albedo off: bytes per cell-step "
+                             f"{line['bytes_per_cell_step']}, not 1200")
+    if not (launches.get("fluvial") and launches.get("debris") and probe):
+        raise AssertionError(f"bench {n}^2 albedo off launches: cohort "
+                             f"{launches}, probe {probe}")
+    if sorted(first) != ["debris", "fluvial"] or any(
+            rec[2].albedo_on for rec in first.values()):
+        raise AssertionError(f"bench {n}^2 albedo off: recorded solves "
+                             f"{[(k, r[2].albedo_on) for k, r in first.items()]}")
+    log(f"  bench {n}^2 albedo off, {iters} rounds, {steps} steps: "
+        f"{ms / 1e3:.1f} s in all, {line['value']:.4e} gridpoint-steps/s "
+        f"({n * n / line['value'] * 1e3:.1f} ms a step); cohort launches "
+        f"{launches}, probe launches {probe}; peak memory allocated / "
+        f"reserved {peak['bench'][0]:.2f} / {peak['bench'][1]:.2f} GB")
+    release_compiled()
+    entries = []
+    for kind in ("fluvial", "debris"):
+        st, aux, rules, Llen = first.pop(kind)
+        captured = {kind: (st.cuda(), aux.cuda(), rules, Llen)}
+        del st, aux
+        # The plain round on the full 8192^2 state peaks near 62 GB: the
+        # check runs once the bench's graphs are released.
+        e = kernel_entry(kind, captured, launches)
+        del captured
+        e["name"] = f"cohort_round[{kind},albedo=off]"
+        e["launches_by_path"] = {
+            f"bench {n}\u00b2 albedo off (phase 25)": launches[kind]}
+        log(f"  {e['name']} {'x'.join(map(str, e['shape']))}: "
+            f"{e['ms']:.3f} ms/round at {e['rounds_per_launch']} rounds a "
+            f"launch ({e['ms_per_round_at_1_round_a_launch']:.3f} at 1), "
+            f"plain {e['plain_ms']:.2f} ms at "
+            f"{'x'.join(map(str, e['plain_shape']))}; {e['registers']} "
+            f"registers, {e['spill_store_bytes']} B spilled")
+        entries.append(e)
+        torch.cuda.empty_cache()
+    peak["checks"] = peak_gb()
+    log(f"  the checks' peak memory allocated / reserved "
+        f"{peak['checks'][0]:.2f} / {peak['checks'][1]:.2f} GB")
+    return entries, peak
+
+
 def main():
     import torch
 
@@ -3539,6 +3648,7 @@ def main():
             f"{e['plain_ms']:.2f} ms; {e['registers']} registers, "
             f"{e['shared_bytes_per_block']} B shared a block, "
             f"{e['bytes_per_cell_round']:.1f} B per cell-round")
+    del sim, captured
 
     log("phase 6: DEM path 4096^2 (fill, steepest, accumulate x2, "
         "gradient, solve_uniform 8192 rounds)")
@@ -3721,6 +3831,14 @@ def main():
         by_name[f"cohort_round[{kind}]"].setdefault("launches_by_path", {})[
             "scaling 2 x 2 sharing the card (phase 24)"] = scaled[kind]
     log(f"  phase 24 took {time.perf_counter() - t24:.1f} s")
+
+    release_compiled()
+    t25 = time.perf_counter()
+    log("phase 25: the bench at 8192^2, albedo off, 32 rounds (the JAX "
+        "headline's capacity configuration), and the ALBEDO=false cohort "
+        "kernels on its inputs")
+    entries += phase_headline_8192()[0]
+    log(f"  phase 25 took {time.perf_counter() - t25:.1f} s")
 
     # The round bounds weigh exp, division and sqrt by the probe's costs.
     costs = probe["fp32"]["costs"]

@@ -33,7 +33,9 @@ kernel's K at 4096^2 with albedo on). K is a constant of the yardstick,
 not the blocking of the port's kernel, which runs one round per launch
 (208 / 192 B per cell-round).
 
-Prints ONE JSON line on stdout, the roofline breakdown on stderr.
+Prints ONE JSON line on stdout; on stderr the roofline breakdown and a
+`[run]` line: the run's peak device memory (allocated and reserved, GB)
+and the kernel launches it made (cohort rounds and the FP32 probe).
 """
 
 from __future__ import annotations
@@ -83,6 +85,12 @@ VARIANT_ROUND_OPS = {
     ("fluvial", True, 4, "cluster"): (4303.58203125, 40.0, 140.0, 40.0),
     ("fluvial", True, 2, "speed"): (2113.322265625, 20.0, 72.0, 24.0),
 }
+
+# The keys of the JSON line, in order: bench.py's, with fp32_* for its
+# vpu_* and the card's nvidia-smi name and power limit as `device`.
+JSON_KEYS = ("metric", "value", "unit", "vs_baseline", "hbm_sol",
+             "compute_sol", "bw_bytes_per_s", "bytes_per_cell_step",
+             "fp32_ops_per_s", "fp32_ops_per_cell_step", "device")
 
 # Rounds per pass of the byte model (see the module docstring).
 K_ROUNDS_PER_PASS = 16
@@ -310,6 +318,13 @@ def main(argv=None) -> dict:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     size = args.size or (4096 if device.type == "cuda" else 256)
+    from soillib_tpu_torch.ops import cohort, fp32_chain
+
+    counters = {"cohort": cohort.cohort_round_launches,
+                "fp32_chain": fp32_chain.fp32_chain_launches}
+    counts0 = {k: dict(c) for k, c in counters.items()}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
 
     W = H = size
     scale = (0.078, 0.078, 4.0)
@@ -392,6 +407,15 @@ def main(argv=None) -> dict:
         f"{per_group} steps: {[round(t, 4) for t in group_s]} s",
         file=sys.stderr, flush=True,
     )
+    launches = {k: {n: v - counts0[k].get(n, 0) for n, v in c.items()
+                    if v != counts0[k].get(n, 0)}
+                for k, c in counters.items()}
+    peak = ("peak memory allocated "
+            f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB, "
+            f"reserved {torch.cuda.max_memory_reserved(device) / 1e9:.2f} GB"
+            if device.type == "cuda" else "peak memory not measured (cpu)")
+    print(f"[run] {peak}; launches {json.dumps(launches)}", file=sys.stderr,
+          flush=True)
     depth = f"auto(<={iters_n})" if auto else str(iters_n)
     device_desc = (smi_query("name,power.limit", device)
                    if device.type == "cuda" else "cpu")

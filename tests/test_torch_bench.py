@@ -140,6 +140,7 @@ def test_main_on_cpu_prints_one_json_line():
         "metric", "value", "unit", "vs_baseline", "hbm_sol", "compute_sol",
         "bw_bytes_per_s", "bytes_per_cell_step", "fp32_ops_per_s",
         "fp32_ops_per_cell_step", "device"}
+    assert list(line) == list(bench.JSON_KEYS)
     assert line["unit"] == "gridpoint-steps/s" and line["device"] == "cpu"
     assert line["value"] > 0 and line["vs_baseline"] > 0
     assert line["bytes_per_cell_step"] == bench.step_bytes_per_cell(4, True)
