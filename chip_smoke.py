@@ -54,7 +54,8 @@ call of rank 0 bitwise), then the compiled driver (phase 22: make_erode_fn
 replaying one step captured as a CUDA graph, against the eager erode_step,
 bitwise with equal launch counters, in seven configurations from the
 bench's 4096^2 to the cascade's 128^2 level and the flagship's particle
-step; ms a step, idle share, capture time and peak memory of both), then
+step; ms a step of both, the compiled step's phases and idle share inside
+its graph read through its marks, capture time and peak memory), then
 the study harnesses of soillib_tpu_torch.benchmarks (phase 23: the
 transport-parity harness at 256^2 on the noise and steep terrains, 4
 seeds, cold and warm, 4 coupled steps x 2, its keys the JAX harness's,
@@ -72,7 +73,9 @@ erosion paths of every phase run the compiled driver; where a phase
 records a kernel's inputs it calls the eager erode_step. Each path's
 kernel launches
 are counted from zero just before it runs and read just after; one more
-step of each erosion path, and one accumulate, is profiled by kernel.
+step of each erosion path is profiled and read through the phase marks
+captured into its graph (perfbench/marks.py), and one accumulate is
+profiled by kernel.
 Every phase raises on failure. The last three lines of standard output are a JSON object
 describing each kernel (its launches on its path, its error against the
 plain version on the path's own inputs, its time, the plain version's
@@ -604,43 +607,34 @@ def idle_share(busy_ms, wall_ms, what):
     return share
 
 
-def phase_breakdown(sim, kernels=(("cohort_kernel_ms",
-                                   "cohort_rounds_kernel"),)):
-    """Device time of one more step of `sim` (after one unprofiled) by
-    kernel, from
-    torch.profiler: each (label, kernel name) of `kernels`, the rest (the
-    plain torch glue) and the device's idle share of the step's wall
-    time."""
+def mark_reading(step, steps=2):
+    """`steps` calls of `step()` under torch.profiler
+    (`perfbench.trace.profiled_steps`), read through the phase marks that
+    the port captures into its step's graph (`perfbench.marks.summary`):
+    the mean step span, each phase's ms and the device's idle share
+    inside the graph. None where no complete mark group was traced (an
+    eager step has none). Two calls: a fresh profiler session may miss
+    the first kernel of the first replay it traces."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    sim.step()  # unprofiled: a step not compiled yet captures here
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy = 0.0
-    split = {label: 0.0 for label, _ in kernels}
-    for e in prof.key_averages():
-        # Kernel events only: an operator's entry repeats its kernels'
-        # device time.
-        if e.device_type != DeviceType.CUDA:
-            continue
-        ms = float(e.self_device_time_total) / 1e3
-        busy += ms
-        for label, kernel in kernels:
-            if kernel in e.key:
-                split[label] += ms
-    if busy <= 0.0:
-        log("  profiler recorded no device time: breakdown not measured")
+    from perfbench import marks, trace
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return marks.summary(trace.profiled_steps(step, steps, dev, dict))
+
+
+def phase_breakdown(sim, steps=2):
+    """Where a step of `sim` goes: one unprofiled step (a step not
+    compiled yet captures here) and one timed, then `steps` under
+    torch.profiler read through the marks (`mark_reading`), beside the
+    unprofiled step's ms."""
+    sim.step()
+    _, step_ms = timed(sim.step)
+    out = mark_reading(sim.step, steps)
+    if out is None:
+        log("  no complete mark group traced: breakdown not measured")
         return None
-    out = {"step_wall_ms": wall_ms, "device_busy_ms": busy, **split,
-           "other_kernels_ms": busy - sum(split.values()),
-           "idle_share": idle_share(busy, wall_ms, "profiled step")}
+    out["unprofiled_step_ms"] = step_ms
     log("  " + json.dumps(out))
     return out
 
@@ -1731,10 +1725,9 @@ def phase_cascade(level0_steps=CASCADE_LEVEL0_STEPS):
                 lambda: cohort.cohort_rounds_cuda(st, aux, G, rules, Llen,
                                                   K, out=out), 50) / K
     del kept
-    # Where a step's time goes at the finest and the coarsest level: one
-    # profiled step each after a warm step (level 0's on a fresh 128^2
-    # state). The profiler adds host time to every operator, so the idle
-    # share is also read against the example's own ms per step.
+    # Where a step's time goes at the finest and the coarsest level, read
+    # through the marks after a warm step (level 0's on a fresh 128^2
+    # state).
     scale = soil.level_scale(multiscale.WORLD, multiscale.ZSCALE,
                              (1000, 1000))
     sim = soil.ErosionSim((1000, 1000), scale, param, state=state)
@@ -1747,12 +1740,6 @@ def phase_cascade(level0_steps=CASCADE_LEVEL0_STEPS):
             (128, 128), soil.noise_t(seed=3.0, ext=(128, 128)))))
     sim.step(2)
     breakdown["128^2"] = phase_breakdown(sim)
-    for key, step_ms in (("128^2", run["ms_per_step"][0]),
-                         ("1000^2", run["ms_per_step"][-1])):
-        if breakdown[key]:
-            breakdown[key]["idle_share_of_unprofiled_step"] = idle_share(
-                breakdown[key]["device_busy_ms"], step_ms,
-                f"cascade {key} step")
     cohort.cohort_round_launches.update(saved[0])
     cohort.cohort_rounds.update(saved[1])
     out = {"levels": [[list(r), n] for r, n in levels], "cut": cut,
@@ -1768,8 +1755,8 @@ def phase_cascade(level0_steps=CASCADE_LEVEL0_STEPS):
         f"step past its last "
         f"({len(errs)}) bitwise equal to plain; kernel ms per round "
         f"{json.dumps({k: round(v, 4) for k, v in kernel_ms.items()})}"
-        f"; idle share of the unprofiled step "
-        f"{json.dumps({k: v and v['idle_share_of_unprofiled_step'] for k, v in breakdown.items()})}")
+        f"; idle % inside the step's graph "
+        f"{json.dumps({k: v and v['step_idle_pct'] for k, v in breakdown.items()})}")
     return out
 
 
@@ -2184,41 +2171,6 @@ def sync(device):
         torch.cuda.synchronize()
 
 
-def profiled_idle(fn, what, rounds):
-    """fn() once under torch.profiler (device activity only): device busy
-    ms, wall ms, the idle share, kernels launched per transport round
-    (`rounds` in fn) and the four kernels with the most device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t_all = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy, kernels, by_kernel = 0.0, 0, []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        ms = float(e.self_device_time_total) / 1e3
-        busy += ms
-        kernels += int(e.count)
-        by_kernel.append((ms, int(e.count), e.key[:60]))
-    if busy <= 0.0:
-        log(f"  {what}: the profiler recorded no device time: idle share "
-            f"not measured")
-        return {"wall_ms": wall_ms, "device_busy_ms": None,
-                "idle_share": None, "kernels_per_round": None}
-    return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "idle_share": idle_share(busy, wall_ms, what),
-            "kernels_per_round": kernels / rounds,
-            "top_kernels_ms_count": sorted(by_kernel, reverse=True)[:4],
-            "profiler_s": time.perf_counter() - t_all}
-
-
 class Stopwatch:
     """While active, module.name is timed on the host clock between
     synchronises at each call (ms appended to `ms`)."""
@@ -2288,8 +2240,9 @@ def phase_particles_full_width(n=4096, maxage=PARTICLE_MAXAGE,
     (nSamples = n^2), maxage `maxage` (maxage - 1 rounds a transport),
     albedo on: one warm-up and one timed step from the same state with
     the same seed (their largest difference printed: index_add_ on the
-    card is an atomic scatter), then one profiled step at 32 rounds.
-    Prints ms a step and a transport, peak memory and the idle share;
+    card is an atomic scatter), then two profiled steps at 32 rounds.
+    Prints ms a step and a transport, peak memory and the profiled
+    step's phases and idle share inside its graph (`mark_reading`);
     returns the timed step's state."""
     import torch
 
@@ -2332,9 +2285,7 @@ def phase_particles_full_width(n=4096, maxage=PARTICLE_MAXAGE,
     short = soil.make_erode_fn(_with_maxage(p, PROFILED_MAXAGE),
                                (0.1, 0.1, 4.0))
     short(state, seeded_generator(device, 12))  # captures: not profiled
-    prof = (profiled_idle(lambda: short(state, seeded_generator(device,
-                                                                12)),
-                          f"particles {n}^2 step", 2 * (PROFILED_MAXAGE - 1))
+    prof = (mark_reading(lambda: short(state, seeded_generator(device, 12)))
             if torch.device(device).type == "cuda" else None)
     out = {"n": n, "particles": N, "rounds": rounds,
            "first_step_ms": ms_first, "step_ms": ms,
@@ -2394,7 +2345,8 @@ def phase_particles_flagship(res=256, steps=32, device="cuda"):
     """The reference flagship's own configuration with particles
     (examples/erosion_tpu.py: 256^2, nSamples 8192, maxage 256; the
     example's terrain and world scale): one warm-up and `steps` timed
-    steps, one profiled step at 32 rounds (idle share, kernels a round);
+    steps, two profiled steps at 32 rounds read through their marks
+    (`mark_reading`);
     then one
     256^2 step on the card held against the same code on the CPU with
     the same injected births, per cell at maxage 16 and by totals at
@@ -2416,9 +2368,7 @@ def phase_particles_flagship(res=256, steps=32, device="cuda"):
     rounds = max(p.maxage - 1, 0)
     short = soil.make_erode_fn(_with_maxage(p, PROFILED_MAXAGE), pscale)
     short(sim.state, sim.key)  # captures: not profiled
-    prof = (profiled_idle(lambda: short(sim.state, sim.key),
-                          f"particles flagship {res}^2 step",
-                          2 * (PROFILED_MAXAGE - 1))
+    prof = (mark_reading(lambda: short(sim.state, sim.key))
             if device == "cuda" else None)
     fields = particle_state_fields(res, res, 5)
     draws = birth_draws(p.nSamples, 2, 6)
@@ -3045,7 +2995,7 @@ def release_compiled():
 
 def compiled_configs():
     """Phase 22's configurations: (label, what, make), make() -> (params,
-    state, scale, transport rounds a step for the profile)."""
+    state, scale)."""
     import soillib_tpu_torch as soil
     from soillib_tpu_torch.examples import multiscale
     from soillib_tpu_torch.examples.erosion import make_param
@@ -3057,8 +3007,7 @@ def compiled_configs():
             p.transportIterations, p.transportTol = 0, 1e-6
         else:
             p.transportIterations = 32
-        return (p, headline_state(4096, "cuda"), (0.078, 0.078, 4.0),
-                2 * (p.transportIterations or p.maxage - 2))
+        return p, headline_state(4096, "cuda"), (0.078, 0.078, 4.0)
 
     def noise_state(n):
         return soil.ErosionState.zeros((n, n), height=soil.noise(
@@ -3066,16 +3015,14 @@ def compiled_configs():
 
     def cascade():
         p = make_param()
-        return (p, noise_state(128), soil.level_scale(
-            multiscale.WORLD, multiscale.ZSCALE, (128, 128)),
-            2 * p.transportIterations)
+        return p, noise_state(128), soil.level_scale(
+            multiscale.WORLD, multiscale.ZSCALE, (128, 128))
 
     def flagship(particles):
         p = make_param()
         if particles:
             p.transportMethod = "particles"
-        return (p, noise_state(256), (20.0 / 256, 20.0 / 256, 4.0),
-                2 * (p.maxage - 1 if particles else p.transportIterations))
+        return p, noise_state(256), (20.0 / 256, 20.0 / 256, 4.0)
 
     def field_static():
         p = soil.ErosionParams()
@@ -3084,11 +3031,11 @@ def compiled_configs():
         p.transportMethod = "field-static"
         return (p, soil.ErosionState.zeros((4096, 4096),
                                            height=terrain(4096, 23)),
-                (0.1, 0.1, 4.0), 64)
+                (0.1, 0.1, 4.0))
 
     def quality():
         return (quality_params(32), soil.ErosionState.zeros(
-            (1024, 1024), height=terrain(1024, 37)), (0.1, 0.1, 4.0), 64)
+            (1024, 1024), height=terrain(1024, 37)), (0.1, 0.1, 4.0))
 
     return [
         ("a", "bench inputs 4096^2, 32 rounds, albedo on",
@@ -3135,9 +3082,10 @@ def compiled_vs_eager(label, what, make, steps=4, seed=5,
     the launch counters of each (counted from zero) and the generator's
     state; then `steps` replays with donate=True, bitwise too. ms a step
     of steps 2.. for each path (host clock between synchronises; the
-    compiled path's first call, which captures, apart), the idle share of
-    one profiled step of each (against the profiled and the unprofiled
-    wall time), warm-up, capture and instantiate seconds, and peak memory
+    compiled path's first call, which captures, apart), two profiled
+    replays of the compiled step read through their marks (`mark_reading`:
+    phases and the idle share inside the graph), warm-up, capture and
+    instantiate seconds, and peak memory
     with donate=False and with donate=True, of the first call (which
     captures) and of the steps after it (allocated, and reserved: a
     graph's pool is reserved). With
@@ -3153,7 +3101,7 @@ def compiled_vs_eager(label, what, make, steps=4, seed=5,
     from soillib_tpu_torch.models import simulation
 
     release_compiled()
-    p, state, scale, rounds = make()
+    p, state, scale = make()
     counters = launch_counters()
     fails = []
     rec = {"what": what, "deterministic_algorithms": deterministic}
@@ -3205,11 +3153,7 @@ def compiled_vs_eager(label, what, make, steps=4, seed=5,
                          f"{compiled_counts}, eager {eager_counts}")
         if not torch.equal(gen.get_state(), key.get_state()):
             fails.append(f"({label}) the generators differ after the steps")
-        prof_c = profiled_idle(lambda: fn(c, gen),
-                               f"({label}) compiled step", rounds)
-        prof_e = profiled_idle(
-            lambda: simulation.erode_step(e, scale, p, key),
-            f"({label}) eager step", rounds)
+        marks_c = mark_reading(lambda: fn(c, gen))
         del c
         release_compiled()
 
@@ -3232,10 +3176,6 @@ def compiled_vs_eager(label, what, make, steps=4, seed=5,
     release_compiled()
     eager_step = float(np.mean(eager_ms[1:]))
     compiled_step = float(np.mean(compiled_ms))
-    for prof, wall in ((prof_c, compiled_step), (prof_e, eager_step)):
-        if prof["device_busy_ms"] is not None:
-            prof["idle_share_of_unprofiled_step"] = idle_share(
-                prof["device_busy_ms"], wall, f"({label}) step")
     rec.update({
         "bitwise_after_steps": steps if not fails else None,
         "eager_ms": eager_ms, "compiled_first_call_ms": first_ms,
@@ -3246,20 +3186,15 @@ def compiled_vs_eager(label, what, make, steps=4, seed=5,
         "sweep_launches": eager_counts[2],
         "compiled_launches": compiled_counts[0],
         "compiled_sweep_launches": compiled_counts[2],
-        "idle_share_compiled": prof_c["idle_share"],
-        "idle_share_eager": prof_e["idle_share"],
-        "profiled_compiled": prof_c, "profiled_eager": prof_e})
+        "marks_compiled": marks_c})
     log(f"  ({label}) {what}: {'bitwise equal' if not fails else 'FAILED'}"
         f" after {steps} steps; ms a step (steps 2-{steps}) eager "
         f"{eager_step:.3f}, compiled {compiled_step:.3f} (first call "
         f"{first_ms:.1f}: warm-up {stats['warmup_s']:.2f} s, capture "
         f"{stats['capture_s']:.2f} s, instantiate "
         f"{stats['instantiate_s']:.2f} s), donate "
-        f"{np.mean(donate_ms):.3f}; idle (profiled, unprofiled) eager "
-        f"{prof_e['idle_share']}, "
-        f"{prof_e.get('idle_share_of_unprofiled_step')}; compiled "
-        f"{prof_c['idle_share']}, "
-        f"{prof_c.get('idle_share_of_unprofiled_step')}; peak GB "
+        f"{np.mean(donate_ms):.3f}; compiled step's marks (profiled) "
+        f"{json.dumps(marks_c)}; peak GB "
         f"(allocated, reserved) of the steps after the first call "
         f"donate=False {rec['peak_gb_donate_false']}, donate=True "
         f"{rec['peak_gb_donate_true']} (of the first call "
@@ -3673,8 +3608,7 @@ def main():
                                fs_launches["sweep"], fs_rounds["sweep"]))
     del fs_calls
     log("where the time goes: one profiled 4096^2 field-static step")
-    phase_breakdown(fs_sim, (("sweep_kernel_ms", "transport_rounds_kernel"),
-                             ("cohort_kernel_ms", "cohort_rounds_kernel")))
+    phase_breakdown(fs_sim)
     del fs_sim
 
     log("phase 9: noise 4096^2 on the card vs the CPU")
@@ -3697,9 +3631,7 @@ def main():
     release_compiled()
     q_sim, _, q_launches, _, q_captured = phase_quality()
     log("where the time goes: one profiled 4096^2 quality step")
-    phase_breakdown(q_sim, (("cohort_nodes_kernel_ms",
-                             "cohort_round_nodes_kernel"),
-                            ("cohort_kernel_ms", "cohort_rounds_kernel")))
+    phase_breakdown(q_sim)
     del q_sim
     release_compiled()
     entries.append(kernel_entry("fluvial", {"fluvial": q_captured},

@@ -26,6 +26,12 @@ Where the device decides what runs (the cohort solve's adaptive exit:
 the launches after it do nothing), the wrapper reports the device's
 count (`count_on_device`); the replays sum it on the card, and the call
 reads the sum once at its end.
+
+Every capture adds its warm-up, capture and instantiation seconds to one
+record of the process (`graph_setup`). The capture puts the phase marks
+`step_begin` at its head and `step_end` at its end (`core/trace.py`; the
+step itself marks the boundaries between its phases), and a call enters
+the driver's host spans while a profiler runs.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ import weakref
 
 import torch
 
+from soillib_tpu_torch.core.trace import mark, prepare_marks, span
+
 
 def launch_counters() -> tuple:
     """The launch and round counters of the port's kernel wrappers (dicts
@@ -44,6 +52,19 @@ def launch_counters() -> tuple:
 
     return (cohort.cohort_round_launches, cohort.cohort_rounds,
             sweep.sweep_launches, sweep.sweep_rounds, graph_tiled.tile_launches)
+
+
+# Host seconds of the set-up of every CapturedStep captured in the process.
+_setup = {"steps": 0, "warmup_s": 0.0, "capture_s": 0.0,
+          "instantiate_s": 0.0}
+
+
+def graph_setup() -> dict:
+    """The process's record of graph set-up: `steps`, the CapturedSteps
+    captured so far, and the host seconds of their warm-up steps, captures
+    and instantiations (`warmup_s`, `capture_s`, `instantiate_s`), each
+    summed over them. A copy."""
+    return dict(_setup)
 
 
 # Counts that only the device knows. Under a CapturedStep's capture a
@@ -146,6 +167,7 @@ class CapturedStep:
         with torch.no_grad(), torch.cuda.stream(side):
             self.step(dict(self.static), self.generator)
         torch.cuda.current_stream(dev).wait_stream(side)
+        prepare_marks(dev)
         torch.cuda.synchronize(dev)
         self.warmup_s = time.perf_counter() - t0
         _restore(saved)
@@ -161,6 +183,7 @@ class CapturedStep:
         t0 = time.perf_counter()
         try:
             with torch.no_grad(), torch.cuda.graph(graph, pool=self.pool):
+                mark("step_begin")
                 _write_back(self.static,
                             self.step(dict(self.static), self.generator))
                 if len(reported) > DEVICE_COUNTS:
@@ -170,6 +193,7 @@ class CapturedStep:
                 if reported:
                     device_sum[:len(reported)].add_(
                         torch.stack([r[3] for r in reported]))
+                mark("step_end")
         except BaseException:
             _restore(saved)
             raise
@@ -193,6 +217,9 @@ class CapturedStep:
         torch.cuda.synchronize(dev)
         self.instantiate_s = time.perf_counter() - t0
         self.graph = graph
+        _setup["steps"] += 1
+        for k in ("warmup_s", "capture_s", "instantiate_s"):
+            _setup[k] += getattr(self, k)
 
     def _copy_in(self, fields: dict):
         """The caller's fields into the buffers. A field that is its
@@ -228,33 +255,37 @@ class CapturedStep:
         on_card = (torch.cuda.device(self.device) if self.graph is not None
                    else contextlib.nullcontext())
         with torch.no_grad(), on_card:
-            self._copy_in(fields)
-            if self.generator is not None:
-                self.generator.set_state(generator.get_state())
-            if self.graph is not None:
-                for _ in range(int(steps)):
-                    self.graph.replay()
-                    for counts, delta in zip(launch_counters(),
-                                             self.launch_delta):
-                        for k, n in delta.items():
-                            counts[k] = counts.get(k, 0) + n
-                if self._device_sum is not None:
-                    # One read of the device's counts a call.
+            with span("soil.step.copy_in"):
+                self._copy_in(fields)
+                if self.generator is not None:
+                    self.generator.set_state(generator.get_state())
+            with span("soil.step.replay"):
+                if self.graph is not None:
+                    for _ in range(int(steps)):
+                        self.graph.replay()
+                        for counts, delta in zip(launch_counters(),
+                                                 self.launch_delta):
+                            for k, n in delta.items():
+                                counts[k] = counts.get(k, 0) + n
+                else:
+                    for _ in range(int(steps)):
+                        _write_back(self.static, self.step(
+                            dict(self.static), self.generator))
+            if self._device_sum is not None:
+                # One read of the device's counts a call.
+                with span("soil.step.read_counts"):
                     for (i, k), n in zip(self._device_keys,
                                          self._device_sum.tolist()):
                         counts = launch_counters()[i]
                         counts[k] = counts.get(k, 0) + n
                     self._device_sum.zero_()
-            else:
-                for _ in range(int(steps)):
-                    _write_back(self.static,
-                                self.step(dict(self.static), self.generator))
             if self.generator is not None:
                 generator.set_state(self.generator.get_state())
             if donate:
                 self._handed = {}
                 return dict(self.static)
-            out = {k: v.clone() for k, v in self.static.items()}
+            with span("soil.step.clone_out"):
+                out = {k: v.clone() for k, v in self.static.items()}
             self._handed = {k: (weakref.ref(v), v._version,
                                 self.static[k]._version)
                             for k, v in out.items()}

@@ -31,6 +31,7 @@ import torch
 from soillib_tpu_torch.core.device import _device, seeded_generator
 from soillib_tpu_torch.core.graphs import CapturedStep
 from soillib_tpu_torch.core.halo import NO_HALO
+from soillib_tpu_torch.core.trace import mark, span
 from soillib_tpu_torch.models.erosion import (
     mass_creep,
     mass_transfer,
@@ -155,7 +156,11 @@ def erode_step(
     nothing from it; the particle transports draw their births from it,
     fluvial first, then debris. The JAX step splits its key into one for
     each solve; a torch.Generator advances as it draws, so drawing from
-    the one generator in program order is the counterpart."""
+    the one generator in program order is the counterpart.
+
+    Under a CUDA-graph capture the step marks the ends of its phases
+    (`core/trace.py` `mark`: after each solve and after the update);
+    eager, it launches no mark."""
     p = param
     lr = p.lrate
     key = _particle_key(key, state, p)
@@ -164,6 +169,7 @@ def erode_step(
         state.layers, state.rainfall, state.discharge, state.mass,
         state.momentum, state.albedo_surface, scale, p, key=key, halo=halo,
     )
+    mark("fluvial_end")
     # The JAX step puts an optimization_barrier here to keep XLA from
     # interleaving the two cohort solves; eager torch runs them in program
     # order, so there is nothing to sequence.
@@ -171,6 +177,7 @@ def erode_step(
         state.layers, state.debris, state.debris_momentum,
         state.albedo_surface, scale, p, key=key, halo=halo,
     )
+    mark("debris_end")
 
     def blend(old, new):
         return (1.0 - lr) * old + lr * new
@@ -189,6 +196,7 @@ def erode_step(
     )
     delta = mass_creep(delta, state.layers, scale, p, halo=halo)
     layers = state.layers + delta
+    mark("update_end")
 
     return state.replace(
         layers=layers,
@@ -372,6 +380,8 @@ class ErosionSim:
         self.donate = donate
 
     def step(self, n: int = 1):
-        self.state = make_erode_fn(self.param, self.scale, steps=n,
-                                   donate=self.donate)(self.state, self.key)
+        with span("soil.step"):
+            self.state = make_erode_fn(self.param, self.scale, steps=n,
+                                       donate=self.donate)(self.state,
+                                                           self.key)
         return self.state
