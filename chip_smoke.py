@@ -35,8 +35,9 @@ coupled steps with the closure), then the Monte-Carlo particle path
 (transportMethod="particles": a 4096^2 step with one particle a cell at
 127 rounds, the reference flagship's 256^2 / 8192 particles / 255
 rounds for 32 steps and held against the CPU with the same injected
-births, and dem_process --particles at 1024^2 with its tile-kernel calls
-bitwise) and the host utilities (a 4096^2 checkpoint round trip,
+births, the trajectory kernel against the plain loop at that size, both
+estimators, timed, and dem_process --particles at 1024^2 with its
+tile-kernel calls bitwise) and the host utilities (a 4096^2 checkpoint round trip,
 prefetch of 16 GeoTIFF tiles through a side stream, the native
 library's build and LZW decode), then sharded execution
 (soillib_tpu_torch.parallel, phase 21) in ranks spawned by
@@ -678,6 +679,7 @@ class Spy:
 
 
 def zero_counts(*counts):
+    """Sets each count to 0."""
     for c in counts:
         for k in c:
             c[k] = 0
@@ -2239,8 +2241,8 @@ def phase_particles_full_width(n=4096, maxage=PARTICLE_MAXAGE,
     """transportMethod="particles" at n^2 with one particle a cell
     (nSamples = n^2), maxage `maxage` (maxage - 1 rounds a transport),
     albedo on: one warm-up and one timed step from the same state with
-    the same seed (their largest difference printed: index_add_ on the
-    card is an atomic scatter), then two profiled steps at 32 rounds.
+    the same seed (their largest difference printed: the trajectory
+    kernel's deposits are atomics), then two profiled steps at 32 rounds.
     Prints ms a step and a transport, peak memory and the profiled
     step's phases and idle share inside its graph (`mark_reading`);
     returns the timed step's state."""
@@ -2345,7 +2347,8 @@ def phase_particles_flagship(res=256, steps=32, device="cuda"):
     """The reference flagship's own configuration with particles
     (examples/erosion_tpu.py: 256^2, nSamples 8192, maxage 256; the
     example's terrain and world scale): one warm-up and `steps` timed
-    steps, two profiled steps at 32 rounds read through their marks
+    steps, one step whose trajectory-kernel launches and live
+    particle-rounds are counted, two profiled steps at 32 rounds read through their marks
     (`mark_reading`);
     then one
     256^2 step on the card held against the same code on the CPU with
@@ -2353,6 +2356,7 @@ def phase_particles_flagship(res=256, steps=32, device="cuda"):
     maxage 256."""
     import soillib_tpu_torch as soil
     from soillib_tpu_torch.examples.erosion import make_param
+    from soillib_tpu_torch.ops import particles
     from soillib_tpu_torch.testing import birth_draws, particle_state_fields
 
     p = make_param()
@@ -2366,6 +2370,14 @@ def phase_particles_flagship(res=256, steps=32, device="cuda"):
     _, ms = timed(lambda: sim.step(steps))
     finite_state(sim.state, f"particles flagship {res}^2")
     rounds = max(p.maxage - 1, 0)
+    # One more step, its kernel launches and live particle-rounds.
+    launches = live = None
+    if device == "cuda":
+        zero_counts(particles.particle_launches)
+        particles.reset_particle_rounds()
+        sim.step()
+        launches = nonzero(particles.particle_launches)
+        live = particles.particle_rounds()
     short = soil.make_erode_fn(_with_maxage(p, PROFILED_MAXAGE), pscale)
     short(sim.state, sim.key)  # captures: not profiled
     prof = (mark_reading(lambda: short(sim.state, sim.key))
@@ -2376,9 +2388,86 @@ def phase_particles_flagship(res=256, steps=32, device="cuda"):
            for m in (16, 256)}
     out = {"res": res, "particles": p.nSamples, "rounds": rounds,
            "steps": steps, "ms_per_step": ms / steps, "profiled": prof,
+           "launches": launches, "live_particle_rounds": live,
            "card_vs_cpu_worst_share": cmp}
     log(f"  {json.dumps(out)}")
     return out
+
+
+# Bytes a live particle-round moves at the least (csrc/particle_rounds.cu's
+# bound): the per-cell lookups at its cell and the deposits' reductions.
+PARTICLE_ROUND_BYTES = {"fluvial": 20 + 28, "debris": 16 + 24}
+
+
+def particle_kernel_entries(res=256, N=8192, maxage=256):
+    """The trajectory kernel (csrc/particle_rounds.cu) against the plain
+    loop on the same CUDA tensors at the flagship's size (res^2, N
+    particles, maxage - 1 rounds; a seeded state and births), both
+    estimators: per cell at rtol 2e-5 and atol 1e-6 of each channel's
+    largest finite magnitude (the atomics' order; the trajectories are
+    the plain loop's bit for bit), non-finite cells in the same places.
+    Times the kernel (its call captured into a CUDA graph and replayed:
+    the flux's fill and the launch) and the plain loop (eager), and
+    returns one kernel entry a kind, with the live particle-rounds and the
+    bound by bytes (PARTICLE_ROUND_BYTES a live particle-round at
+    PEAK_BYTES_PER_S)."""
+    import torch
+
+    from soillib_tpu_torch.examples.erosion import make_param
+    from soillib_tpu_torch.models import erosion
+    from soillib_tpu_torch.ops import particles
+    from soillib_tpu_torch.testing import (
+        birth_draws,
+        particle_round_inputs,
+        particle_state_fields,
+    )
+
+    p = make_param()
+    p.transportMethod, p.nSamples, p.maxage = "particles", N, maxage
+    fields = particle_state_fields(res, res, 5)
+    entries = []
+    for kind in ("fluvial", "debris"):
+        args = particle_round_inputs(kind, fields, (20.0 / res, 20.0 / res,
+                                                    4.0), p, "cuda",
+                                     birth_draws(N, 1, 6)[0])
+        rounds0 = particles.particle_rounds()[kind]
+        got = erosion._particle_rounds(**args)
+        live = particles.particle_rounds()[kind] - rounds0
+        want = erosion._particle_rounds_plain(**args)
+        worst = 0.0
+        for c in range(want.shape[0]):
+            g = got[c].double().cpu().numpy()
+            w = want[c].double().cpu().numpy()
+            fin = np.isfinite(w)
+            if not np.array_equal(np.isfinite(g), fin):
+                raise AssertionError(f"particle_rounds[{kind}] channel {c}: "
+                                     f"non-finite elsewhere than plain")
+            allow = 2e-5 * np.abs(w[fin]) + 1e-6 * np.abs(w[fin]).max(
+                initial=0.0)
+            err = np.abs(g[fin] - w[fin])
+            worst = max(worst, float((err / np.maximum(allow, 1e-300))
+                                     .max(initial=0.0)))
+        if worst > 1.0:
+            raise AssertionError(f"particle_rounds[{kind}] off the plain "
+                                 f"loop: {worst:.3f} of the allowance")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            erosion._particle_rounds(**args)
+        ms = cuda_ms(graph.replay, 50)
+        del graph
+        plain_ms = cuda_ms(lambda: erosion._particle_rounds_plain(**args), 2)
+        nbytes = live * PARTICLE_ROUND_BYTES[kind]
+        e = {"name": f"particle_rounds[{kind}]", "ms": ms,
+             "plain_ms": plain_ms, "rounds": maxage - 1, "particles": N,
+             "live_particle_rounds": live, "max_err_share": worst,
+             "bytes": nbytes,
+             "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        log(f"  particle_rounds[{kind}] {res}^2, {N} particles x "
+            f"{maxage - 1} rounds: kernel {ms:.4f} ms (graph replay), plain "
+            f"loop {plain_ms:.2f} ms; {live} live particle-rounds; worst "
+            f"{worst:.3f} of the allowance; {json.dumps(e)}")
+        entries.append(e)
+    return entries
 
 
 def phase_dem_particles(n=1024, device="cuda"):
@@ -3090,8 +3179,9 @@ def compiled_vs_eager(label, what, make, steps=4, seed=5,
     captures) and of the steps after it (allocated, and reserved: a
     graph's pool is reserved). With
     `deterministic` both paths run under
-    torch.use_deterministic_algorithms (the particle scatter's
-    index_add_ adds with atomics otherwise), and two eager runs without
+    torch.use_deterministic_algorithms (the particle kernel's deposits
+    add with atomics otherwise; under it the kernel runs a round a launch
+    into torch's deterministic index_add_), and two eager runs without
     it are compared as well. Returns (record, failures)."""
     import torch
 
@@ -3186,6 +3276,7 @@ def compiled_vs_eager(label, what, make, steps=4, seed=5,
         "sweep_launches": eager_counts[2],
         "compiled_launches": compiled_counts[0],
         "compiled_sweep_launches": compiled_counts[2],
+        "compiled_particle_launches": compiled_counts[5],
         "marks_compiled": marks_c})
     log(f"  ({label}) {what}: {'bitwise equal' if not fails else 'FAILED'}"
         f" after {steps} steps; ms a step (steps 2-{steps}) eager "
@@ -3683,7 +3774,16 @@ def main():
     part_state, _ = phase_particles_full_width()
     log("  (b) the flagship configuration 256^2, 8192 particles, 255 "
         "rounds, 32 steps")
-    phase_particles_flagship()
+    flagship = phase_particles_flagship()
+    log("  (b') the trajectory kernel against the plain loop at the "
+        "flagship's size, both estimators, timed")
+    for e in particle_kernel_entries():
+        kind = e["name"][len("particle_rounds["):-1]
+        e["launches_by_path"] = {
+            "flagship 256^2, one ErosionSim.step (phase 19 (b))":
+                flagship["launches"].get(kind, 0)}
+        by_name[e["name"]] = e
+        entries.append(e)
     log("  (c) dem_process --particles 1024^2 (1,048,576 particles, 2047 "
         "rounds)")
     dem_part = phase_dem_particles()
@@ -3739,6 +3839,9 @@ def main():
             by_name["transport_sweep[C=7]"].setdefault(
                 "launches_by_path", {})[path] = rec[
                     "compiled_sweep_launches"]["round"]
+        for key, n in rec["compiled_particle_launches"].items():
+            by_name[f"particle_rounds[{key}]"].setdefault(
+                "launches_by_path", {})[path] = n
     log(f"  phase 22 took {time.perf_counter() - t22:.1f} s")
 
     release_compiled()

@@ -48,10 +48,11 @@ from soillib_tpu_torch.core.trace import mark, prepare_marks, span
 def launch_counters() -> tuple:
     """The launch and round counters of the port's kernel wrappers (dicts
     of ints, changed in place)."""
-    from soillib_tpu_torch.ops import cohort, graph_tiled, sweep
+    from soillib_tpu_torch.ops import cohort, graph_tiled, particles, sweep
 
     return (cohort.cohort_round_launches, cohort.cohort_rounds,
-            sweep.sweep_launches, sweep.sweep_rounds, graph_tiled.tile_launches)
+            sweep.sweep_launches, sweep.sweep_rounds, graph_tiled.tile_launches,
+            particles.particle_launches)
 
 
 # Host seconds of the set-up of every CapturedStep captured in the process.

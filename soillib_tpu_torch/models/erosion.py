@@ -19,10 +19,13 @@ Both transports are age-structured cohort solves (ops/cohort.py); with
 (ops/sweep.py) instead. On CUDA tensors each round of either is one launch
 of a hand-written kernel, on CPU tensors a plain torch round. With
 "particles" both transports run the reference's Monte-Carlo estimator
-itself (`_fluvial_particles`, `_debris_particles`: plain torch gathers,
-elementwise rounds and `index_add_`, as the JAX package's are XLA
-gathers and scatter-adds outside any kernel). Everything else here is
-elementwise and radius-1 stencil work in plain torch.
+itself (`_fluvial_particles`, `_debris_particles`): births, sources and
+normalisation in plain torch, and the trajectory loop (`_particle_rounds`)
+one launch of a hand-written kernel per estimator on CUDA tensors
+(csrc/particle_rounds.cu), plain torch gathers, elementwise rounds and
+`index_add_` on CPU tensors (as the JAX package's are XLA gathers and
+scatter-adds). Everything else here is elementwise and radius-1 stencil
+work in plain torch.
 
 Numerical quirks of the reference reproduced on purpose (do not "fix"):
 ks/64, kd*1.33, fD/8 (erosion.cu:68-70, 478-480); norm = scale.y
@@ -41,7 +44,7 @@ import torch
 from soillib_tpu_torch.core.device import device_constant, seeded_generator
 from soillib_tpu_torch.core.halo import NO_HALO
 from soillib_tpu_torch.models.params import ErosionParams
-from soillib_tpu_torch.ops import transport
+from soillib_tpu_torch.ops import particles, transport
 from soillib_tpu_torch.ops.cohort import ENV_CLOSURE, NSTATE, _check_closure
 from soillib_tpu_torch.ops.noise import _div, mul_u32
 from soillib_tpu_torch.ops.stencil import _shift
@@ -775,10 +778,27 @@ def _particle_births(W, H, N, generator, device):
     return px, py, px.to(torch.int64) * H + py.to(torch.int64)
 
 
-def _particle_rounds(W, H, rounds, px, py, ind, spx, spy, alive, src, sel,
-                     att, Llen, advance):
-    """The trajectory loop both estimators share: `rounds` times, the
-    in-bounds test, the deposit of src * att[sel] on entering a cell (ind
+def _particle_rounds(W, H, rounds, px, py, ind, spx, spy, alive, src, att,
+                     Llen, advance):
+    """The trajectory loop both estimators share (see
+    `_particle_rounds_plain`), dispatched on the tensors' device: CUDA
+    tensors launch the hand-written kernel (ops/particles.py,
+    csrc/particle_rounds.cu; the physics from `advance`), CPU tensors run
+    the plain loop; any other device raises. Returns the flux (C, W*H)."""
+    if px.device.type == "cuda":
+        return particles.particle_rounds_cuda(W, H, rounds, px, py, ind, spx,
+                                              spy, alive, src, att, Llen,
+                                              advance)
+    if px.device.type != "cpu":
+        raise ValueError(f"no particle rounds for device {px.device}")
+    return _particle_rounds_plain(W, H, rounds, px, py, ind, spx, spy, alive,
+                                  src, att, Llen, advance)
+
+
+def _particle_rounds_plain(W, H, rounds, px, py, ind, spx, spy, alive, src,
+                           att, Llen, advance):
+    """The trajectory loop in plain torch: `rounds` times, the in-bounds
+    test, the deposit of src * att[advance.sel] on entering a cell (ind
     updated first), then the DDA step along the unit speed and
     `advance(ind, dL, ds, v_safe, spx, spy, att, src)` ->
     (new speed x, new speed y, new att) at the updated cell. Dead
@@ -787,6 +807,7 @@ def _particle_rounds(W, H, rounds, px, py, ind, spx, spy, alive, src, sel,
     cell-major flux the scatter adds to: one row a particle, 3.6x faster
     on an H100 than a scatter along a channel-first flux's cells
     (tools/particle_scatter.py)."""
+    sel = device_constant(advance.sel, torch.int64, px.device)
     bx, by = _f32(W - 1e-3), _f32(H - 1e-3)
     flux = torch.zeros((W * H, src.shape[0]), dtype=torch.float32,
                        device=px.device)
@@ -835,20 +856,66 @@ def _particle_fields(layers, momentum, albedo_surface, scale, p, halo):
             momentum[0].reshape(-1), momentum[1].reshape(-1), alb)
 
 
+class FluvialAdvance:
+    """The fluvial estimator's round physics after the DDA step
+    (within erosion.cu:29-141): at the particle's new cell `ind` the
+    acceleration from the gradient, momentum and force, the implicit
+    friction weight w1, and the attenuations of water (evaporation), mass
+    (deposition) and momentum (friction over the discharge). Called as the
+    plain round's `advance(ind, dL, ds, v_safe, spx, spy, att, src)` ->
+    (new speed x, new speed y, new att); `lookups` are the per-cell fields
+    it reads and `kernel_scalars()` its constants, for
+    csrc/particle_rounds.cu. `sel`: the attenuation of each deposit
+    (w, m, vx, vy, a0, a1, a2) under the attenuations (w, m, v)."""
+
+    kind = "fluvial"
+    sel = (0, 1, 2, 2, 1, 1, 1)
+
+    def __init__(self, p, gx, gy, mx, my, dis):
+        self.g = p.gravity
+        self.nu = p.viscosityWater
+        self.tau = p.bedShearWater
+        self.evap = p.evapRate
+        self.kd = p.depositionRateFluvial * 1.33
+        self.fD = p.frictionFactor / 8.0
+        self.fx, self.fy = float(p.force[0]), float(p.force[1])
+        self.lookups = (gx, gy, mx, my, dis)
+
+    def __call__(self, ind, dL, ds, v_safe, spx, spy, att, src):
+        gx, gy, mx, my, dis = self.lookups
+        g, nu = self.g, self.nu
+        ax = -(g * gx[ind]) + nu * mx[ind] + self.fx
+        ay = -(g * gy[ind]) + nu * my[ind] + self.fy
+        w1 = _sdiv(1.0, 1.0 + dL * (self.tau + nu))
+        decay_v = _sdiv(0.125 * self.fD, _EPS + dis[ind])
+        natt = torch.stack([
+            att[0] * torch.exp(-ds * self.evap),
+            att[1] * torch.exp(-ds * self.kd),
+            att[2] * torch.exp(-dL * decay_v),
+        ])
+        return w1 * spx + (dL * w1) * ax, w1 * spy + (dL * w1) * ay, natt
+
+    def kernel_scalars(self):
+        """(g, nu, force x, force y, tau + nu, fD / 8, evapRate, kd), each
+        formed in double precision as `__call__` forms it;
+        csrc/particle_rounds.cu `ParticleParams.r`."""
+        return (self.g, self.nu, self.fx, self.fy, self.tau + self.nu,
+                0.125 * self.fD, self.evap, self.kd)
+
+
 def _fluvial_start(p, scale, Q, fields, rain, dis, cell):
     """The fluvial estimator's particles at birth in flat cells `cell` of
     the per-cell `fields` (`_particle_fields`), `rain` and `dis`: (unit
-    speed x, y, alive, the 7 sources, their attenuation channels, the
-    round's `advance`). Shared by the single-device and the sharded
-    estimator (parallel/particles.py)."""
+    speed x, y, alive, the 7 sources, the round's `advance`, a
+    `FluvialAdvance`, whose `sel` gives each source's attenuation
+    channel). Shared by the single-device
+    and the sharded estimator (parallel/particles.py)."""
     sx, sy = float(scale[0]), float(scale[1])
     gx, gy, mx, my, alb = fields
     g = p.gravity
     nu = p.viscosityWater
-    tau = p.bedShearWater
     rho_w = p.densityWater
     ks = p.suspensionRateFluvial / 64.0
-    kd = p.depositionRateFluvial * 1.33
     fD = p.frictionFactor / 8.0
     alpha = p.fluvialExponent
     R = p.rainfall
@@ -870,22 +937,8 @@ def _fluvial_start(p, scale, Q, fields, rain, dis, cell):
         (Q * (-(g * g0y) + nu * v0y))[None],
         source_m[None] * alb[:, cell],
     ])
-    # Deposits (w, m, vx, vy, a0, a1, a2) under attenuations (w, m, v).
-    sel = device_constant((0, 1, 2, 2, 1, 1, 1), torch.int64, spx.device)
-
-    def advance(ind, dL, ds, v_safe, spx, spy, att, src):
-        ax = -(g * gx[ind]) + nu * mx[ind] + fx
-        ay = -(g * gy[ind]) + nu * my[ind] + fy
-        w1 = _sdiv(1.0, 1.0 + dL * (tau + nu))
-        decay_v = _sdiv(0.125 * fD, _EPS + dis[ind])
-        natt = torch.stack([
-            att[0] * torch.exp(-ds * p.evapRate),
-            att[1] * torch.exp(-ds * kd),
-            att[2] * torch.exp(-dL * decay_v),
-        ])
-        return w1 * spx + (dL * w1) * ax, w1 * spy + (dL * w1) * ay, natt
-
-    return spx, spy, alive, src, sel, advance
+    advance = FluvialAdvance(p, gx, gy, mx, my, dis)
+    return spx, spy, alive, src, advance
 
 
 def _fluvial_particles(
@@ -909,32 +962,80 @@ def _fluvial_particles(
     rain = torch.broadcast_to(rainfall, (W, H)).reshape(-1)
 
     px, py, ind = _particle_births(W, H, N, generator, discharge.device)
-    spx, spy, alive, src, sel, advance = _fluvial_start(
+    spx, spy, alive, src, advance = _fluvial_start(
         p, scale, Q, fields, rain, discharge.reshape(-1), ind)
     # The reference loop `while(... && ++iter < maxage)` executes at most
     # maxage - 1 iterations (erosion.cu:101).
     att = torch.ones((3, N), dtype=torch.float32, device=discharge.device)
     return _particle_rounds(W, H, max(int(p.maxage) - 1, 0), px, py, ind,
-                            spx, spy, alive, src, sel, att, Llen, advance)
+                            spx, spy, alive, src, att, Llen, advance)
 
 
-def _debris_start(p, scale, Q, fields, cell):
-    """The debris estimator's particles at birth (see `_fluvial_start`).
-    The carried mass sets the rheology (debrisHeight = EPS + att_d *
+class DebrisAdvance:
+    """The debris estimator's round physics after the DDA step
+    (within erosion.cu:245-351; see `FluvialAdvance` for the interface). The
+    carried mass sets the rheology (debrisHeight = EPS + att_d *
     source_d, with the CURRENT attenuation; source_d is row 0 of the
     sources, which travel with their particle), the shear rate follows
     the sign of the excess stress, and the mass factor exp(+decay_d) may
-    grow without bound (to inf where the JAX package's does)."""
+    grow without bound (to inf where the JAX package's does). `sel`: the
+    attenuation of each deposit (d, vx, vy, a0, a1, a2) under the
+    attenuations (d, v)."""
+
+    kind = "debris"
+    sel = (0, 1, 1, 0, 0, 0)
+
+    def __init__(self, p, gx, gy, mx, my):
+        self.theta = p.critSlopeBedrock
+        self.nu = p.viscosityDebris
+        self.tau = p.bedShearDebris
+        self.g = p.gravity
+        self.kdd = p.depositionRateDebris
+        self.kds = p.suspensionRateDebris
+        self.tau_y = p.yieldStress
+        self.lookups = (gx, gy, mx, my)
+
+    def __call__(self, ind, dL, ds, v_safe, spx, spy, att, src):
+        gx, gy, mx, my = self.lookups
+        g, nu = self.g, self.nu
+        gpx, gpy = gx[ind], gy[ind]
+        debrisHeight = _EPS + att[0] * src[0]
+        ax = -(g * gpx) + nu * mx[ind]
+        ay = -(g * gpy) + nu * my[ind]
+        decay = nu + _sdiv(self.tau, debrisHeight)
+        w1 = _sdiv(1.0, 1.0 + dL * decay)
+
+        excess = torch.sqrt(gpx * gpx + gpy * gpy) - self.theta
+        excessStress = g * (excess - _sdiv(self.tau_y, debrisHeight))
+        shearRate = torch.where(excessStress < 0.0, self.kdd, self.kds)
+        decay_d = ds * shearRate * excessStress / v_safe
+        # The mass factor may die out and grow again (exp(+decay_d) is
+        # not clamped). Where the JAX package's devices flush a subnormal
+        # factor to 0 the particle's mass is gone for good (0 * e^x, or
+        # NaN once e^x overflows); torch keeps subnormals, so the factor
+        # and its product are flushed below the smallest normal float
+        # here, as the JAX package's decisions on carried mass are
+        # (ROADMAP C.2).
+        natt = torch.stack([_flush(att[0] * _flush(torch.exp(decay_d))),
+                            att[1] * torch.exp(-dL * decay)])
+        return w1 * spx + (w1 * dL) * ax, w1 * spy + (w1 * dL) * ay, natt
+
+    def kernel_scalars(self):
+        """(g, nu, tau, theta, yield stress, kdd, kds, 0);
+        csrc/particle_rounds.cu `ParticleParams.r`."""
+        return (self.g, self.nu, self.tau, self.theta, self.tau_y, self.kdd,
+                self.kds, 0.0)
+
+
+def _debris_start(p, scale, Q, fields, cell):
+    """The debris estimator's particles at birth (see `_fluvial_start`;
+    the round's `advance` is a `DebrisAdvance`)."""
     sx, sy = float(scale[0]), float(scale[1])
     gx, gy, mx, my, alb = fields
     theta = p.critSlopeBedrock
     nu = p.viscosityDebris
-    tau = p.bedShearDebris
     g = p.gravity
     kl = p.landslideRateDebris
-    kdd = p.depositionRateDebris
-    kds = p.suspensionRateDebris
-    tau_y = p.yieldStress
 
     v0x, v0y, g0x, g0y = mx[cell], my[cell], gx[cell], gy[cell]
     spx, spy = _unit_speed(-(g * g0x) + nu * v0x, -(g * g0y) + nu * v0y,
@@ -949,33 +1050,8 @@ def _debris_start(p, scale, Q, fields, cell):
         (Q * (-(g * g0y) + nu * v0y))[None],
         source_d[None] * alb[:, cell],
     ])
-    # Deposits (d, vx, vy, a0, a1, a2) under attenuations (d, v).
-    sel = device_constant((0, 1, 1, 0, 0, 0), torch.int64, spx.device)
-
-    def advance(ind, dL, ds, v_safe, spx, spy, att, src):
-        gpx, gpy = gx[ind], gy[ind]
-        debrisHeight = _EPS + att[0] * src[0]
-        ax = -(g * gpx) + nu * mx[ind]
-        ay = -(g * gpy) + nu * my[ind]
-        decay = nu + _sdiv(tau, debrisHeight)
-        w1 = _sdiv(1.0, 1.0 + dL * decay)
-
-        excess = torch.sqrt(gpx * gpx + gpy * gpy) - theta
-        excessStress = g * (excess - _sdiv(tau_y, debrisHeight))
-        shearRate = torch.where(excessStress < 0.0, kdd, kds)
-        decay_d = ds * shearRate * excessStress / v_safe
-        # The mass factor may die out and grow again (exp(+decay_d) is
-        # not clamped). Where the JAX package's devices flush a subnormal
-        # factor to 0 the particle's mass is gone for good (0 * e^x, or
-        # NaN once e^x overflows); torch keeps subnormals, so the factor
-        # and its product are flushed below the smallest normal float
-        # here, as the JAX package's decisions on carried mass are
-        # (ROADMAP C.2).
-        natt = torch.stack([_flush(att[0] * _flush(torch.exp(decay_d))),
-                            att[1] * torch.exp(-dL * decay)])
-        return w1 * spx + (w1 * dL) * ax, w1 * spy + (w1 * dL) * ay, natt
-
-    return spx, spy, alive, src, sel, advance
+    advance = DebrisAdvance(p, gx, gy, mx, my)
+    return spx, spy, alive, src, advance
 
 
 def _debris_particles(layers, mass, momentum, albedo_surface, scale, p,
@@ -992,12 +1068,11 @@ def _debris_particles(layers, mass, momentum, albedo_surface, scale, p,
                               NO_HALO)
 
     px, py, ind = _particle_births(W, H, N, generator, mass.device)
-    spx, spy, alive, src, sel, advance = _debris_start(p, scale, Q, fields,
-                                                       ind)
+    spx, spy, alive, src, advance = _debris_start(p, scale, Q, fields, ind)
     # `++iter < maxage` -> maxage - 1 iterations.
     att = torch.ones((2, N), dtype=torch.float32, device=mass.device)
     return _particle_rounds(W, H, max(int(p.maxage) - 1, 0), px, py, ind,
-                            spx, spy, alive, src, sel, att, Llen, advance)
+                            spx, spy, alive, src, att, Llen, advance)
 
 
 # ---------------------------------------------------------------------------

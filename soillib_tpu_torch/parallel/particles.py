@@ -34,6 +34,7 @@ import math
 
 import torch
 
+from soillib_tpu_torch.core.device import device_constant
 from soillib_tpu_torch.core.grid import check_channel_first
 from soillib_tpu_torch.models.erosion import (
     _EPS,
@@ -281,13 +282,13 @@ def solve_particles_sharded(flow, source, decay, scale, count, generator,
             _sum_dropped(mesh, dropped))
 
 
-def _erosion_rounds(geom, rounds, R, ind, alive, C, sel, nA, cap, Llen,
-                    advance):
+def _erosion_rounds(geom, rounds, R, ind, alive, C, nA, cap, Llen, advance):
     """The erosion estimators' trajectory loop (models/erosion.py
     `_particle_rounds`) with migration at the head of each round. R rows:
     x, y, speed x, speed y, nA attenuations, C sources (which travel with
     their particle; `advance` gets them too). Returns (flux (C, bw*bh),
     dropped on this rank)."""
+    sel = device_constant(advance.sel, torch.int64, R.device)
     flux = torch.zeros((geom.bw * geom.bh, C), dtype=torch.float32,
                        device=R.device)
     dropped = torch.zeros((), dtype=torch.int64, device=R.device)
@@ -329,12 +330,12 @@ def _sharded_estimator(start, rounds, nA, scale, p, generator, mesh, slack,
     M, cap = _capacity(N, mesh.size, bw, bh, slack)
     gpx, gpy, _ = _particle_births(geom.W, geom.H, N, generator, dev)
     px, py, ind, valid, over = _seat_births(geom, gpx, gpy, M)
-    spx, spy, alive, src, sel, advance = start(Q, geom.local(px, py))
+    spx, spy, alive, src, advance = start(Q, geom.local(px, py))
     att = torch.ones((nA, M), dtype=torch.float32, device=dev)
     R = torch.cat([px[None], py[None], spx[None], spy[None], att, src])
     C = src.shape[0]
     flux, dropped = _erosion_rounds(geom, rounds, R, ind, valid & alive, C,
-                                    sel, nA, cap, math.sqrt(sx * sx + sy * sy),
+                                    nA, cap, math.sqrt(sx * sx + sy * sy),
                                     advance)
     # flux is a channel-first view of the cell-major (bw*bh, C) flux.
     return flux.T.reshape(bw, bh, C), _sum_dropped(mesh, dropped + over)

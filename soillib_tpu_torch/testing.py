@@ -2,8 +2,8 @@
 closures of the JAX package's gradient tests by name, the JAX kernel
 tests' seeded cohort state, its split over a closure's nodes, the band
 problem of the gradient tests, for the particle estimators a seeded
-mid-run erosion state and births injected in place of the generator's,
-and an LZW encoder for the decoders. Imports numpy and torch only.
+mid-run erosion state, births injected in place of the generator's and
+the inputs of their trajectory loop, and an LZW encoder for the decoders. Imports numpy and torch only.
 """
 
 from __future__ import annotations
@@ -184,6 +184,43 @@ def flagship_particle_step(fields, device, maxage, draws):
     if left:
         raise AssertionError(f"{len(left)} injected births not taken")
     return out
+
+
+def particle_round_inputs(kind, fields, scale, p, device, draw):
+    """What `_fluvial_particles` (kind "fluvial") or `_debris_particles`
+    ("debris") hands its trajectory loop, from the state `fields`
+    (`particle_state_fields`) on `device` with parameters `p`
+    (p.nSamples particles, p.maxage - 1 rounds), the births' uniforms
+    taken from `draw` (one (ux, uy) pair of `birth_draws`): the keyword
+    arguments of models/erosion.py `_particle_rounds`."""
+    import math
+
+    from soillib_tpu_torch.core.halo import NO_HALO
+    from soillib_tpu_torch.models import erosion
+
+    t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+         for k, v in fields.items()}
+    W, H = t["discharge"].shape
+    sx, sy = float(scale[0]), float(scale[1])
+    N = int(p.nSamples)
+    Q = sx * sy * W * H / N
+    mom = t["momentum" if kind == "fluvial" else "debris_momentum"]
+    flds = erosion._particle_fields(t["layers"], mom, t["albedo_surface"],
+                                    scale, p, NO_HALO)
+    with injected_births([draw]):
+        px, py, ind = erosion._particle_births(W, H, N, None, device)
+    if kind == "fluvial":
+        spx, spy, alive, src, advance = erosion._fluvial_start(
+            p, scale, Q, flds, t["rainfall"].reshape(-1),
+            t["discharge"].reshape(-1), ind)
+    else:
+        spx, spy, alive, src, advance = erosion._debris_start(
+            p, scale, Q, flds, ind)
+    att = torch.ones((max(advance.sel) + 1, N), dtype=torch.float32,
+                     device=device)
+    return dict(W=W, H=H, rounds=max(int(p.maxage) - 1, 0), px=px, py=py,
+                ind=ind, spx=spx, spy=spy, alive=alive, src=src, att=att,
+                Llen=math.sqrt(sx * sx + sy * sy), advance=advance)
 
 
 def lzw_encode(data: bytes) -> bytes:

@@ -18,9 +18,15 @@ bitwise where the kernel keeps the plain summation order (one-node solves
 at any rounds per launch, colored solves, one N-node round). Sweep
 (SWEEP_K rounds a launch) and tile kernels: bitwise against their plain
 versions; whole tiled accumulations at rtol 1e-5 (phase 3's index_add
-uses atomics). The particle estimators and the host utilities have no
-kernel: their cases run the plain torch code on CUDA tensors, held
-against the CPU at the CPU tests' bars. The compiled driver (one step
+uses atomics). The particle estimators' trajectory kernel
+(csrc/particle_rounds.cu) against the plain loop on the same CUDA
+tensors: bitwise with one particle (its deposits land in program order),
+per cell at rtol 2e-5 / atol 1e-6 of each channel's largest magnitude at
+the flagship's 8192 particles (the atomics' order), bitwise under
+torch.use_deterministic_algorithms; the whole particle step on the card
+against the CPU at the CPU tests' bars. The host utilities have no
+kernel: their cases run the plain torch code on CUDA tensors. The
+compiled driver (one step
 captured as a CUDA graph) is held bitwise to the eager step. The study
 harnesses (soillib_tpu_torch.benchmarks) run on the card: the parity
 harness's field solves bitwise against the plain rounds, the scaling
@@ -938,9 +944,183 @@ def test_closure_variant_autograd_on_card(name):
 
 
 # ---------------------------------------------------------------------------
-# The particle estimators and the host utilities on the card (no kernel of
-# their own: plain torch on CUDA tensors)
+# The particle estimators (their trajectory loop: csrc/particle_rounds.cu)
+# and the host utilities on the card (no kernel of their own: plain torch
+# on CUDA tensors)
 # ---------------------------------------------------------------------------
+
+
+def _round_case(kind, N, maxage, seed, W=256, H=256, scale=None, **kw):
+    """The trajectory loop's inputs (`particle_round_inputs`) on the card:
+    the flagship's parameters (examples/erosion.py `make_param`, a 20 km
+    world) with N particles and `maxage`, or ErosionParams() with `kw`
+    set when `scale` is given; a seeded state and seeded births."""
+    from soillib_tpu_torch.examples.erosion import make_param
+    from soillib_tpu_torch.testing import (
+        birth_draws,
+        particle_round_inputs,
+        particle_state_fields,
+    )
+
+    p = make_param() if scale is None else ErosionParams()
+    p.transportMethod, p.nSamples, p.maxage = "particles", N, maxage
+    for k, v in kw.items():
+        setattr(p, k, v)
+    scale = scale or (20.0 / W, 20.0 / H, 4.0)
+    return particle_round_inputs(kind, particle_state_fields(W, H, seed),
+                                 scale, p, "cuda",
+                                 birth_draws(N, 1, seed + 1)[0])
+
+
+def _flux_pair(args):
+    """(kernel flux, plain-loop flux) on the same CUDA tensors."""
+    got = erosion._particle_rounds(**args)
+    want = erosion._particle_rounds_plain(**args)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _same_bits(got, want, msg):
+    assert got.shape == want.shape, msg
+    assert torch.equal(got.contiguous().view(torch.int32),
+                       want.contiguous().view(torch.int32)), msg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fluvial", "debris"])
+@pytest.mark.parametrize("maxage", [16, 256])
+def test_particle_kernel_one_particle_bitwise_on_card(kind, maxage):
+    """One particle a launch: its deposits land in program order, so the
+    flux is the plain loop's bit for bit, at 15 and 255 rounds, for eight
+    seeded births (most of them cross several cells)."""
+    _needs_card()
+    from soillib_tpu_torch.ops import particles
+
+    launches = dict(particles.particle_launches)
+    moved = 0
+    for seed in range(8):
+        got, want = _flux_pair(_round_case(kind, 1, maxage, seed))
+        _same_bits(got, want, f"{kind} seed {seed}")
+        moved += int((want[0] != 0).sum()) > 1
+    assert moved >= 4
+    assert particles.particle_launches[kind] == launches[kind] + 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fluvial", "debris"])
+def test_particle_kernel_matches_plain_at_the_flagship_on_card(kind):
+    """The flagship's 8192 particles at 15 rounds: per cell at rtol 2e-5
+    and atol 1e-6 of each channel's largest finite magnitude (the atomics
+    add in another order than the plain scatter), non-finite cells in the
+    same places; the live particle-rounds counted are at most N x
+    rounds."""
+    _needs_card()
+    from soillib_tpu_torch.ops import particles
+
+    args = _round_case(kind, 8192, 16, 5)
+    before = particles.particle_rounds()[kind]
+    got, want = _flux_pair(args)
+    live = particles.particle_rounds()[kind] - before
+    assert 0 < live <= 8192 * 15
+    for c in range(want.shape[0]):
+        g, w = got[c].cpu().numpy(), want[c].cpu().numpy()
+        fin = np.isfinite(w)
+        np.testing.assert_array_equal(np.isfinite(g), fin, f"channel {c}")
+        np.testing.assert_allclose(
+            g[fin], w[fin], rtol=2e-5,
+            atol=1e-6 * float(np.abs(w[fin]).max(initial=0.0)),
+            err_msg=f"{kind} channel {c}")
+    assert float(want[0].abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+def test_particle_kernel_nonfinite_debris_on_card():
+    """The debris mass factor that grows to inf (no yield stress, a fast
+    suspension rate; the CPU test's inputs): inf and NaN in the same
+    cells as the plain loop's, the finite cells per cell."""
+    _needs_card()
+    args = _round_case("debris", 512, 16, 8, W=20, H=24,
+                       scale=(0.1, 0.1, 4.0), yieldStress=0.0,
+                       suspensionRateDebris=5.0)
+    got, want = (t[0].cpu().numpy() for t in _flux_pair(args))
+    assert np.isinf(want).any()
+    np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(
+        got[fin], want[fin], rtol=2e-5,
+        atol=1e-6 * float(np.abs(want[fin]).max(initial=0.0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fluvial", "debris"])
+def test_particle_kernel_deterministic_on_card(kind):
+    """Under torch.use_deterministic_algorithms the kernel runs a round a
+    launch and adds its log with the deterministic index_add_: the plain
+    loop's flux bit for bit at the flagship's 8192 particles (the plain
+    scatter is deterministic there too), and the particles' tensors left
+    as they were."""
+    _needs_card()
+    from soillib_tpu_torch.ops import particles
+
+    args = _round_case(kind, 8192, 16, 6)
+    before = {k: v.clone() for k, v in args.items()
+              if isinstance(v, torch.Tensor)}
+    launches = particles.particle_launches[kind]
+    torch.use_deterministic_algorithms(True)
+    try:
+        got, want = _flux_pair(args)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _same_bits(got, want, kind)
+    assert particles.particle_launches[kind] == launches + 15
+    for k, v in before.items():
+        assert torch.equal(args[k], v), k
+
+
+@pytest.mark.cuda
+def test_particle_kernel_counters_on_card():
+    """A captured particle step launches the kernel twice a replay (one
+    launch an estimator; the warm-up's launches are not counted), and the
+    kernel counts its live particle-rounds on the card, eager, warm-up and
+    replayed launches alike: at most N x rounds a launch, a replay's count
+    the eager step's from the same state and seed. A field step launches
+    it not at all and counts nothing."""
+    _needs_card()
+    from soillib_tpu_torch.core.device import seeded_generator
+    from soillib_tpu_torch.models import simulation
+    from soillib_tpu_torch.ops import particles
+
+    p, state, scale = _compiled_config("particles")
+    most = p.nSamples * (p.maxage - 1)
+
+    def counts():
+        return dict(particles.particle_launches), particles.particle_rounds()
+
+    l0, r0 = counts()
+    simulation.erode_step(simulation._canonicalize(state, p), scale, p,
+                          seeded_generator("cuda", 5))
+    l1, r1 = counts()
+    fn = soil.make_erode_fn(p, scale, 1)
+    fn(state, seeded_generator("cuda", 5))   # warm-up, capture, a replay
+    l2, r2 = counts()
+    fn(state, seeded_generator("cuda", 5))
+    l3, r3 = counts()
+    for k in ("fluvial", "debris"):
+        assert l1[k] - l0[k] == 1 and l2[k] - l1[k] == 1
+        assert l3[k] - l2[k] == 1
+        eager = r1[k] - r0[k]
+        assert 0 < eager <= most
+        assert r3[k] - r2[k] == eager
+        assert 0 < r2[k] - r1[k] - eager <= most
+    particles.reset_particle_rounds()
+    assert particles.particle_rounds() == dict.fromkeys(l3, 0)
+    simulation._compiled.clear()
+    p, state, scale = _compiled_config("default")
+    soil.make_erode_fn(p, scale, 1)(state)
+    torch.cuda.synchronize()
+    assert counts() == (l3, dict.fromkeys(l3, 0))
 
 
 @pytest.mark.cuda
@@ -1207,8 +1387,8 @@ def _counts():
     from soillib_tpu_torch.core.graphs import launch_counters
 
     return {k: dict(v) for k, v in zip(
-        ("launches", "rounds", "sweep", "sweep_rounds", "tile"),
-        launch_counters())}
+        ("launches", "rounds", "sweep", "sweep_rounds", "tile",
+         "particles"), launch_counters())}
 
 
 def _diff(a, b):
@@ -1225,9 +1405,9 @@ def test_compiled_step_is_bitwise_the_eager_step_on_card(name):
     the kernels' launch counters advanced per replay by what the eager
     steps launch, and the particle generator left where the eager steps
     leave it. The particle step runs under
-    torch.use_deterministic_algorithms on both paths: its scatter
-    (index_add_) adds with atomics otherwise, so two eager steps differ
-    in the last bits."""
+    torch.use_deterministic_algorithms on both paths: its trajectory
+    kernel adds its deposits with atomics otherwise, so two eager steps
+    differ in the last bits."""
     _needs_card()
     torch.use_deterministic_algorithms(name == "particles")
     try:

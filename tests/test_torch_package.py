@@ -196,12 +196,12 @@ def test_sources_import_neither_jax_nor_the_jax_package():
 
 
 def test_every_kernel_source_is_built():
-    """One library per csrc/*.cu; the five kernel sources of the port."""
+    """One library per csrc/*.cu; the six kernel sources of the port."""
     from soillib_tpu_torch import _native
 
     assert _native.sources() == ["cohort_round", "fp32_chain",
-                                 "tile_accumulate", "trace_mark",
-                                 "transport_sweep"]
+                                 "particle_rounds", "tile_accumulate",
+                                 "trace_mark", "transport_sweep"]
 
 
 def test_cpu_tensors_take_the_plain_rounds():

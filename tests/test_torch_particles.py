@@ -431,3 +431,201 @@ def test_dem_process_particles_matches_jax(inject):
     assert got.shape == (n, n) and np.isfinite(got).all()
     _totals(got, want, (0, 1))
     assert "solve_uniform" in run["ms"]
+
+
+# ---------------------------------------------------------------------------
+# The trajectory loop's dispatch and the kernel's constants
+# (csrc/particle_rounds.cu runs on the card only; tests/test_torch_cuda.py
+# holds it against the plain loop there)
+# ---------------------------------------------------------------------------
+
+ROUND_N, ROUND_P = 32, 256   # 32^2 grid, 256 particles, 16 rounds
+
+
+def _round_inputs(kind, seed=3, **kw):
+    from soillib_tpu_torch.testing import birth_draws, particle_round_inputs
+
+    p, _ = _params(17, **kw)
+    p.nSamples = ROUND_P
+    return particle_round_inputs(
+        kind, particle_state_fields(ROUND_N, ROUND_N, seed), SCALE, p, "cpu",
+        birth_draws(ROUND_P, 1, seed + 1)[0])
+
+
+def _kernel_sel(kind):
+    """The deposit -> attenuation table compiled into
+    csrc/particle_rounds.cu for `kind` (its `Kind<...>::sel`)."""
+    import re
+    from pathlib import Path
+
+    import soillib_tpu_torch
+
+    src = (Path(soillib_tpu_torch.__file__).parent / "csrc"
+           / "particle_rounds.cu").read_text()
+    body = re.search(r"struct Kind<%s> \{(.*?)\n\};" % kind.upper(), src,
+                     re.S).group(1)
+    table = re.search(r"int SEL\[C\] = \{([^}]*)\}", body).group(1)
+    return tuple(int(v) for v in table.split(","))
+
+
+@pytest.mark.parametrize("kind", ["fluvial", "debris"])
+def test_advance_kernel_scalars_are_the_params(kind):
+    """Each estimator's `advance` hands the kernel the ErosionParams
+    constants its plain round uses, in csrc/particle_rounds.cu's order
+    (`ParticleParams.r`), and its deposit -> attenuation map is the one
+    compiled into the kernel. Every constant distinct, so a swap shows."""
+    p, _ = _params(17, gravity=9.5, viscosityWater=2e-6, bedShearWater=11.0,
+                   evapRate=6e-4, depositionRateFluvial=2e-5,
+                   frictionFactor=0.07, force=(0.3, -0.2),
+                   viscosityDebris=5e-3, bedShearDebris=0.03,
+                   critSlopeBedrock=0.6, yieldStress=1.5e6,
+                   depositionRateDebris=3e-4, suspensionRateDebris=4e-4)
+    t = torch.zeros(4)
+    if kind == "fluvial":
+        adv = pero.FluvialAdvance(p, t, t, t, t, t)
+        want = (9.5, 2e-6, 0.3, -0.2, 11.0 + 2e-6, 0.125 * (0.07 / 8.0),
+                6e-4, 2e-5 * 1.33)
+    else:
+        adv = pero.DebrisAdvance(p, t, t, t, t)
+        want = (9.5, 5e-3, 0.03, 0.6, 1.5e6, 3e-4, 4e-4, 0.0)
+    assert adv.kind == kind
+    assert adv.kernel_scalars() == want
+    assert len(set(want)) == len(want)
+    assert tuple(adv.sel) == _kernel_sel(kind)
+    assert len(adv.lookups) == (5 if kind == "fluvial" else 4)
+    # The start functions build the same object.
+    args = _round_inputs(kind)
+    assert type(args["advance"]) is type(adv)
+    assert args["src"].shape[0] == len(adv.sel)
+    assert args["att"].shape[0] == max(adv.sel) + 1
+
+
+@pytest.mark.parametrize("kind", ["fluvial", "debris"])
+def test_particle_rounds_on_cpu_is_the_plain_loop(kind):
+    """CPU tensors run the plain loop: `_particle_rounds` gives its flux
+    bit for bit, and the estimators' tensors are left as they were."""
+    args = _round_inputs(kind)
+    before = {k: v.clone() for k, v in args.items()
+              if isinstance(v, torch.Tensor)}
+    got = pero._particle_rounds(**args)
+    want = pero._particle_rounds_plain(**args)
+    assert got.shape == want.shape == (len(args["advance"].sel),
+                                       ROUND_N * ROUND_N)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert float(torch.nan_to_num(want, posinf=0.0).abs().max()) > 0.0
+    for k, v in before.items():
+        assert torch.equal(args[k], v), k
+
+
+def _kernel_emulation(W, H, rounds, px, py, ind, spx, spy, alive, src, att,
+                      Llen, advance):
+    """csrc/particle_rounds.cu's arithmetic in numpy float32 scalars, one
+    particle at a time, its constants from `advance.kernel_scalars()` and
+    its lookups from `advance.lookups`. Returns the flux (C, W*H)."""
+    f = np.float32
+    r = [f(v) for v in advance.kernel_scalars()]
+    eps, sqrt2, tiny = f(1e-12), f(math.sqrt(2.0)), np.finfo(f).tiny
+    bx, by, llen = f(W - 1e-3), f(H - 1e-3), f(Llen)
+    sel, C = advance.sel, len(advance.sel)
+    look = [t.numpy() for t in advance.lookups]
+    src, att0 = src.numpy(), att.numpy()
+    flux = np.zeros((W * H, C), f)
+
+    def flush(v):
+        return f(0.0) if abs(v) < tiny else v
+
+    with np.errstate(all="ignore"):
+        for i in range(px.shape[0]):
+            x, y = f(px[i]), f(py[i])
+            vx, vy = f(spx[i]), f(spy[i])
+            cell, live = int(ind[i]), bool(alive[i])
+            a, s = list(att0[:, i]), src[:, i]
+            for _ in range(rounds):
+                live = live and x >= 0 and y >= 0 and x < W and y < H
+                if not live:
+                    break
+                nind = (int(min(max(x, f(0.0)), bx)) * H
+                        + int(min(max(y, f(0.0)), by)))
+                if nind != cell:
+                    cell = nind
+                    for c in range(C):
+                        flux[cell, c] += s[c] * a[sel[c]]
+                vn = np.sqrt(vx * vx + vy * vy)
+                if not vn >= eps:
+                    break
+                ux, uy = vx / vn, vy / vn
+                xn, yn = np.floor(x), np.floor(y)
+                tx = np.fmin(np.fmax((xn - x) / ux, (xn + f(1.0) - x) / ux),
+                             sqrt2)
+                ty = np.fmin(np.fmax((yn - y) / uy, (yn + f(1.0) - y) / uy),
+                             sqrt2)
+                stp = f(0.5) * (tx + ty)
+                dL = stp * llen
+                ds = dL / vn
+                g, nu = r[0], r[1]
+                gx, gy, mx, my = (look[k][cell] for k in range(4))
+                if advance.kind == "fluvial":
+                    ax = -(g * gx) + nu * mx + r[2]
+                    ay = -(g * gy) + nu * my + r[3]
+                    w1 = f(1.0) / (f(1.0) + dL * r[4])
+                    decay_v = r[5] / (eps + look[4][cell])
+                    a = [a[0] * np.exp(-ds * r[6]), a[1] * np.exp(-ds * r[7]),
+                         a[2] * np.exp(-dL * decay_v)]
+                else:
+                    dh = eps + a[0] * s[0]
+                    ax = -(g * gx) + nu * mx
+                    ay = -(g * gy) + nu * my
+                    decay = nu + r[2] / dh
+                    w1 = f(1.0) / (f(1.0) + dL * decay)
+                    es = g * ((np.sqrt(gx * gx + gy * gy) - r[3])
+                              - r[4] / dh)
+                    rate = r[5] if es < 0 else r[6]
+                    a = [flush(a[0] * flush(np.exp(ds * rate * es / vn))),
+                         a[1] * np.exp(-dL * decay)]
+                x, y = x + stp * ux, y + stp * uy
+                vx, vy = w1 * vx + (dL * w1) * ax, w1 * vy + (dL * w1) * ay
+    return torch.from_numpy(flux.T.copy())
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("fluvial", {}), ("debris", {}),
+    ("debris", {"yieldStress": 0.0, "suspensionRateDebris": 5.0})])
+def test_kernel_arithmetic_matches_the_plain_loop(kind, kw):
+    """The kernel's per-particle arithmetic with the constants the
+    wrapper hands it (`_kernel_emulation`, numpy float32) against the
+    plain loop, per cell (the summation order differs: particle-major
+    against round-major), non-finite cells (the debris mass factor grown
+    to inf) in the same places."""
+    args = _round_inputs(kind, **kw)
+    got = _kernel_emulation(**args)
+    want = pero._particle_rounds_plain(**args)
+    for c in range(got.shape[0]):
+        _per_cell(got[c].numpy(), want[c].numpy(), f"{kind} channel {c}")
+    if kw:
+        assert bool(torch.isinf(want[0]).any())
+
+
+def test_particle_rounds_refuses_what_the_kernel_does_not_take():
+    """Another device than the CPU and CUDA raises; the kernel's wrapper
+    raises, without a launch, on CPU tensors and on an advance of another
+    kind."""
+    from soillib_tpu_torch.ops import particles
+
+    launches = dict(particles.particle_launches)
+    args = _round_inputs("fluvial")
+    meta = {k: v.to("meta") if isinstance(v, torch.Tensor) else v
+            for k, v in args.items()}
+    with pytest.raises(ValueError, match="device"):
+        pero._particle_rounds(**meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        particles.particle_rounds_cuda(**args)
+
+    class Other(pero.FluvialAdvance):
+        kind = "other"
+
+    bad = Other.__new__(Other)
+    bad.__dict__.update(args["advance"].__dict__)
+    with pytest.raises(NotImplementedError):
+        particles.particle_rounds_cuda(**{**args, "advance": bad})
+    assert particles.particle_launches == launches
