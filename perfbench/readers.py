@@ -8,7 +8,7 @@ returns None."""
 from __future__ import annotations
 
 from perfbench import yardstick
-from perfbench.trace import is_cohort, is_scatter
+from perfbench.trace import is_cohort, is_particle
 
 
 def kernels_per_step(rec):
@@ -19,8 +19,11 @@ def kernels_per_step(rec):
 
 
 def host_ms_per_step(rec):
-    """The host clock around each `ErosionSim.step()` call of the
-    unprofiled window, no synchronise inside, averaged."""
+    """The host clock around each call of the program's `step()`, no
+    synchronise inside, averaged: the smaller of the unprofiled window's
+    calls (which wait for room in the launch queue once the window's
+    run-ahead fills it) and the warm-up's calls after the captures (each
+    on an idle device)."""
     return rec.get("host_ms_per_step")
 
 
@@ -55,8 +58,20 @@ def glue_ms_per_step(rec):
     return t * 1e3 / rec["steps"]
 
 
-def scatter_ms_per_step(rec):
-    """Device ms a step of torch's index_add_ kernels: the particle
-    estimators' scatter of deposits."""
-    t = sum(e - s for name, s, e, _ in rec["device_ops"] if is_scatter(name))
-    return t * 1e3 / rec["steps"] if t > 0.0 else None
+def particle_roofline_pct(rec):
+    """100 * bound / the particle kernels' device time over the profiled
+    steps. The bound is the bytes of the live particle-rounds that ran
+    (the program's `particle_rounds` counter over the same steps, by
+    estimator), at the plain round's bytes a live particle-round
+    (`yardstick.particle_round_bytes`), over the HBM rate."""
+    t = sum(e - s for name, s, e, _ in rec["device_ops"]
+            if is_particle(name))
+    rounds = rec["counters"].get("particle_rounds", {})
+    if t <= 0.0 or not rounds:
+        return None
+    bound = 0.0
+    for kind, n in rounds.items():
+        if kind not in yardstick.PARTICLE_FIELDS:
+            return None  # another estimator: not in this yardstick
+        bound += n * yardstick.particle_round_bytes(kind)
+    return 100.0 * bound / yardstick.HBM_BYTES_PER_S / t

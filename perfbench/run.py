@@ -3,19 +3,18 @@
     python3 -m perfbench.run --workload <cell> --seed <n> --seconds <s>
         --trace <0|1>
 
-from the root of a checkout. In order: the cell's inputs from the seed
-(the terrain, the state, the particle seed), the program's set-up
-(`soillib_tpu_torch.ErosionSim`: its kernels built or loaded from
-`soillib_tpu_torch/_build/`, its step captured as a CUDA graph) and warm-up
-steps, the measured window of `ErosionSim.step()` calls, with `--trace 1`
-a profiled window after it, the albedo step (one more call from the
-program's state with its albedos drawn from the seed), then the check of
-the steps it sampled and of the albedo step against the plain reference,
-and one JSON line on stdout. It fails, and
-prints no result, without a CUDA device (or with fewer than the cell
-asks for), or when the process has loaded JAX or the JAX package. A run
-whose check finds a number over its limit prints its line with `correct`
-false.
+from the root of a checkout. The cell's configuration names its pipeline
+(`perfbench/pipelines/<name>.py`, "erosion" by default; see
+`perfbench.spec`), which supplies what belongs to that kind of
+configuration. In order: the cell's inputs from the seed, the program's
+set-up and warm-up steps, the measured window of the program's `step()`
+calls, with `--trace 1` a profiled window after it (the pipeline's
+counters read around it), the pipeline's steps checked after the window,
+then the check of the steps it sampled against the plain reference, and
+one JSON line on stdout. It fails, and prints no result, without a CUDA
+device (or with fewer than the cell asks for), or when the process has
+loaded JAX or the JAX package. A run whose check finds a number over its
+limit prints its line with `correct` false.
 
 The last lines on stderr, and the result line's last key `checks`, give
 each number compared beside its limit.
@@ -35,10 +34,12 @@ import time
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "soillib_tpu")
 # Warm-up calls before the window (set-up): the first captures the step,
-# the second settles the state's shapes (compact albedo fields broadcast).
+# the second settles the state's shapes (the erosion program broadcasts
+# compact inputs in its first step).
 WARMUP_STEPS = 3
-# Calls in flight before the host waits: it waits on the event of the
-# step RUNAHEAD + 1 calls back.
+# The window's steps queued ahead of the one the host waits for: AHEAD_S
+# seconds of the cell's steps, timed in warm-up, and RUNAHEAD at least.
+AHEAD_S = 5.0
 RUNAHEAD = 2
 
 
@@ -66,49 +67,9 @@ def forbidden_modules() -> list:
                    if m.split(".")[0] in FORBIDDEN})
 
 
-def make_fields(cfg: dict, trf: dict, seed: int, device) -> dict:
-    """The cell's initial state, as a dict of the program's ErosionState
-    fields, made by the benchmark on `device` from the seed."""
-    import torch
-
-    from perfbench import terrain
-
-    W, H = cfg["grid"]
-    h = terrain.height(cfg["terrain"], trf["terrain"], (W, H), seed, device)
-    st = cfg["state"]
-
-    def f(*c):
-        return torch.zeros((*c, W, H), dtype=torch.float32, device=device)
-
-    def scalar_field(v, default):
-        if v is None:
-            return torch.full((W, H), float(default), dtype=torch.float32,
-                              device=device)
-        return torch.full((1, 1), float(v), dtype=torch.float32,
-                          device=device)
-
-    def color(v):
-        if v is None:
-            return torch.ones((3, W, H), dtype=torch.float32, device=device)
-        return torch.tensor(v, dtype=torch.float32,
-                            device=device).reshape(3, 1, 1)
-
-    surface = color(st["albedo_surface"])
-    return {
-        "layers": torch.stack([h, f()], dim=0),
-        "rainfall": scalar_field(st["rainfall"], 1.0),
-        "uplift": scalar_field(st["uplift"], 0.0),
-        "discharge": f(), "mass": f(), "momentum": f(2), "debris": f(),
-        "debris_momentum": f(2),
-        "albedo_bedrock": color(st["albedo_bedrock"]),
-        "albedo_surface": surface, "albedo_fluvial": surface,
-        "albedo_debris": surface,
-    }
-
-
 def checked_steps(trf: dict, seed: int) -> tuple:
     """The steps the check compares: whether the first step (the first
-    warm-up call, from the benchmark's own state) is one, and the window
+    warm-up call, from the benchmark's own inputs) is one, and the window
     steps drawn from the seed (`window_samples` of the first `within`
     steps of the window, as indices into the window)."""
     chk = trf["check"]
@@ -118,29 +79,14 @@ def checked_steps(trf: dict, seed: int) -> tuple:
     return bool(chk["first_step"]), picks
 
 
-def with_drawn_albedos(fields: dict, seed: int) -> dict:
-    """`fields` with each albedo field replaced by one of the same shape
-    drawn from the seed on its device, uniform in [0.2, 1) in every entry:
-    the input of the albedo step that the check compares."""
-    import torch
-
-    out = dict(fields)
-    ref = fields["albedo_surface"]
-    g = torch.Generator(device=ref.device).manual_seed(
-        (int(seed) * 0x9E3779B97F4A7C15 + 5) % (1 << 63))
-    for f in ("albedo_bedrock", "albedo_surface", "albedo_fluvial",
-              "albedo_debris"):
-        a = fields[f]
-        out[f] = 0.2 + 0.8 * torch.rand(a.shape, generator=g,
-                                        dtype=a.dtype, device=a.device)
-    return out
-
-
-def program_params(soil, p: dict):
-    param = soil.ErosionParams()
-    for k, v in p.items():
-        setattr(param, k, v)
-    return param
+def runahead(warm_s: list) -> int:
+    """Steps to keep queued in the window: AHEAD_S seconds of steps at the
+    median of the warm-up steps after the first (each timed on the host's
+    clock to its synchronise), RUNAHEAD at least."""
+    if not warm_s:
+        return RUNAHEAD
+    return max(RUNAHEAD, math.ceil(AHEAD_S / max(statistics.median(warm_s),
+                                                 1e-6)))
 
 
 def run_cell(cell: dict, bench: dict, seed: int, seconds: float,
@@ -150,57 +96,54 @@ def run_cell(cell: dict, bench: dict, seed: int, seconds: float,
     returns the result line as a dict, with `correct` and `checks`."""
     import torch
 
-    import soillib_tpu_torch as soil
-    from perfbench import check, spec, terrain, trace, window
-    from perfbench.reference import rng, step as reference
+    from perfbench import check, spec, trace, window
 
     here = here or spec.HERE
     t_start = T_START if t_start is None else t_start
     cfg = spec.config(cell["config"], here)
     trf = spec.traffic(cell["traffic"], here)
     lim = spec.limits(cell["name"], here)["limits"]
-    p = spec.params(cfg, trf)
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     if cuda and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    W, H = cfg["grid"]
-    scale = tuple(float(s) for s in cfg["scale"])
-    particles = p["transportMethod"] == "particles"
-    sim_seed = terrain.sim_seed(seed)
+    pipe = spec.pipeline(spec.pipeline_name(cfg), here).Pipeline(
+        cfg, trf, seed, dev)
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
 
-    # Set-up: inputs, the program's simulation, warm-up.
-    fields0 = make_fields(cfg, trf, seed, dev)
-    sim = soil.ErosionSim((W, H), scale, program_params(soil, p),
-                          state=soil.ErosionState(**fields0), seed=sim_seed,
-                          device=dev)
-    del fields0
+    # Set-up: inputs, the program's set-up, warm-up.
+    inputs = pipe.inputs()
+    prog = pipe.setup(inputs)
+    del inputs
+    work = prog.work
     first, window_checks = checked_steps(trf, seed)
     keeper = window.Keeper(dev)
     clock = window.Clock(dev)
 
-    def state_dict():
-        return {f: getattr(sim.state, f) for f in reference.FIELDS}
-
     # Warm-up: WARMUP_STEPS calls, then more for the mix's `warmup_s`
-    # seconds. After the program's set-up every small kernel of the
-    # process runs ~15% slower for seconds to tens of seconds (PERF.md);
-    # the 256^2 mixes step through that before the window. Set-up that
-    # takes longer shows in setup_s one for one.
-    warm, t_warm = 0, None
+    # seconds, each synchronised; their times set the window's run-ahead.
+    # For seconds to tens of seconds after the program's set-up the small
+    # steps run slower (PERF.md); the 256^2 mixes step through that before
+    # the window. Set-up that takes longer shows in setup_s one for one.
+    warm, t_warm, warm_s, warm_host_ms = 0, None, [], []
     while warm < WARMUP_STEPS or time.time() - t_warm < trf["warmup_s"]:
-        sim.step()
+        tw = time.perf_counter()
+        prog.step()
+        if warm >= WARMUP_STEPS - 1:
+            warm_host_ms.append((time.perf_counter() - tw) * 1e3)
         if warm == 0 and first:
             clock.sync()
-            keeper.reserve(("out", 0), state_dict())
-            keeper.keep(("out", 0), state_dict())
+            keeper.reserve(("out", 0), prog.state())
+            keeper.keep(("out", 0), prog.state())
         warm += 1
         clock.sync()
+        if warm > 1:
+            warm_s.append(time.perf_counter() - tw)
         if warm == WARMUP_STEPS:
             t_warm = time.time()
-    like = state_dict()
+    ahead = runahead(warm_s)
+    like = prog.state()
     for j in window_checks:
         keeper.reserve(("in", warm + j), like)
         keeper.reserve(("out", warm + j), like)
@@ -210,46 +153,50 @@ def run_cell(cell: dict, bench: dict, seed: int, seconds: float,
 
     def before(j):
         if j in window_checks:
-            keeper.keep(("in", warm + j), state_dict())
+            keeper.keep(("in", warm + j), prog.state())
 
     def after(j):
         if j in window_checks:
-            keeper.keep(("out", warm + j), state_dict())
+            keeper.keep(("out", warm + j), prog.state())
 
     setup_s = time.time() - t_start
-    res = window.run(sim.step, clock, seconds, RUNAHEAD,
+    res = window.run(prog.step, clock, seconds, ahead,
                      before=before, after=after,
                      until=max(window_checks, default=-1) + 1)
     n = res["n"]
+    ran = warm + n
     rec = None
     if traced:
-        from soillib_tpu_torch.ops import cohort
-
-        rec = trace.profiled_steps(
-            sim.step, int(trf["profile_steps"]), dev,
-            lambda: {"cohort_rounds": dict(cohort.cohort_rounds)})
-        rec.update(host_ms_per_step=statistics.fmean(res["host_ms"]),
-                   cells=W * H, albedo=bool(p["trackAlbedo"]))
+        rec = trace.profiled_steps(prog.step, int(trf["profile_steps"]), dev,
+                                   pipe.counters)
+        # Each reading can only overstate the host's own cost of a call:
+        # a window's call may wait for room in the launch queue, and a
+        # warm-up call (on an idle device, after the captures) for the
+        # device where the step reads it. The smaller is the reading.
+        host_ms = statistics.fmean(res["host_ms"])
+        if warm_host_ms:
+            host_ms = min(host_ms, statistics.fmean(warm_host_ms))
+        rec.update(host_ms_per_step=host_ms, **prog.record)
+        ran += int(trf["profile_steps"])
     clock.sync()
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     kind = torch.cuda.get_device_name(dev) if cuda else "cpu"
-    if p["trackAlbedo"]:
-        # The albedo step: one more call, outside the window, from the
-        # program's state with its albedos drawn from the seed. The
-        # configurations' albedos are uniform, which leaves the albedo
-        # arithmetic unseen by the steps above.
-        i = warm + res["ran"] + (int(trf["profile_steps"]) if traced else 0)
-        sim.state = soil.ErosionState(**with_drawn_albedos(state_dict(),
-                                                           seed))
+    # The pipeline's steps checked after the window: one call each, from
+    # the inputs it makes of the program's state (popped, so that the
+    # program holds the only reference).
+    extras = pipe.extra_inputs(prog.state())
+    while extras:
+        prog.load(extras.pop(0))
         for tag in ("in", "out"):
-            keeper.reserve((tag, i), state_dict())
-        keeper.keep(("in", i), state_dict())
-        sim.step()
-        keeper.keep(("out", i), state_dict())
-        steps_to_check.append(i)
+            keeper.reserve((tag, ran), prog.state())
+        keeper.keep(("in", ran), prog.state())
+        prog.step()
+        keeper.keep(("out", ran), prog.state())
+        steps_to_check.append(ran)
+        ran += 1
 
     # The check, once the program's state is freed.
-    del sim
+    del prog
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -257,34 +204,31 @@ def run_cell(cell: dict, bench: dict, seed: int, seconds: float,
     t_ref = time.time()
     for i in steps_to_check:
         if i == 0:
-            inp = make_fields(cfg, trf, seed, dev)
+            inp = pipe.inputs()
             out = keeper.get(("out", 0))
         else:
             inp = {k: v.to(dev) for k, v in keeper.get(("in", i)).items()}
             out = keeper.get(("out", i))
         out = {k: v.to(dev) for k, v in out.items()}
-        gen = None
-        if particles:
-            gen = rng.generator(dev, sim_seed)
-            reference.skip_births(int(p["nSamples"]), gen, dev, i)
-        ref = reference.erode_step(inp, scale, p, gen)
-        gaps.append(check.fields(inp, out, ref))
-        readings.append(check.compare(inp, out, ref))
+        ref = pipe.reference(inp, i)
+        gaps.append(pipe.gaps(inp, out, ref))
+        readings.append(pipe.numbers(gaps[-1]))
         del inp, out, ref
     numbers = check.worst(readings)
     over = check.judge(numbers, lim)
     ref_s = time.time() - t_ref
 
+    # The end-to-end metrics by base name (a `.part` twin reads as its
+    # base): the rate is the pipeline's work a step over the window.
+    measured = {"cell_steps_per_s": work * n / res["window_s"],
+                "step_ms_p95": _p95(res["intervals_ms"]),
+                "peak_mem_gb": peak / 1e9, "setup_s": setup_s}
     metrics = {}
     for m in spec.metrics_of(bench, cell["name"], traced):
         if traced:
             v = spec.reader(m["name"], here)(rec)
         else:
-            rate = W * H * n / res["window_s"]
-            v = {"cell_steps_per_s": rate, "cell_steps_per_s.small": rate,
-                 "step_ms_p95": _p95(res["intervals_ms"]),
-                 "peak_mem_gb": peak / 1e9,
-                 "setup_s": setup_s}.get(m["name"])
+            v = measured.get(m["name"].split(".", 1)[0])
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     device_info = {"platform": "gpu" if cuda else "cpu", "kind": kind,
@@ -296,7 +240,7 @@ def run_cell(cell: dict, bench: dict, seed: int, seconds: float,
         device_info.update(busy_s=busy, window_s=rec["window_s"])
         out["breakdown"] = trace.breakdown(rec)
     out["info"] = {"seed": seed, "steps_checked": steps_to_check,
-                   "steps_run": warm + res["ran"], "window_s": res["window_s"],
+                   "steps_run": warm + n, "window_s": res["window_s"],
                    "setup_s": setup_s, "reference_s": ref_s,
                    "over_limit": over,
                    "step_ms": _step_summary(res["intervals_ms"]),
@@ -306,7 +250,7 @@ def run_cell(cell: dict, bench: dict, seed: int, seconds: float,
                                  "host_spans": len(rec["host_spans"]),
                                  "counters": rec["counters"],
                                  "profiled_window_s": rec["window_s"]}
-    out["checks"] = {k: [_num(numbers[k]), lim[k]] for k in check.NUMBERS}
+    out["checks"] = {k: [_num(v), lim[k]] for k, v in numbers.items()}
     return out
 
 

@@ -17,7 +17,7 @@ def tiny(tmp_path):
     transport method ("tiny.field", "tiny.particles"), made only by adding
     files, and a BENCHMARK dict that names them. Returns (here, bench)."""
     here = tmp_path / "perfbench"
-    for d in ("configs", "traffic", "limits", "metrics"):
+    for d in ("configs", "traffic", "limits", "metrics", "pipelines"):
         shutil.copytree(os.path.join(spec.HERE, d), here / d)
     cfg = spec.config("erosion-256")
     cfg.update(grid=[32, 32], scale=[0.625, 0.625, 4.0])

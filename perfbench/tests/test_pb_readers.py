@@ -38,17 +38,20 @@ def test_idle_gaps_and_breakdown():
     assert len(bd["idle_gaps"]) == 3
 
 
-def test_kernels_glue_scatter():
+def test_kernels_glue_particles():
     ops = [("void cohort_rounds_kernel(x)", 0.0, 0.1, "kernel"),
            ("elementwise", 0.1, 0.15, "kernel"),
            ("Memcpy DtoD", 0.15, 0.17, "memcpy"),
-           ("void at::native::indexFuncLargeIndex<float>(x)", 0.2, 0.21,
-            "kernel")]
-    rec = _rec(ops)
+           ("void (anonymous namespace)::particle_rounds_kernel<0>(x)", 0.2,
+            0.21, "kernel")]
+    rounds = {"particle_rounds": {"fluvial": 1000}}
+    rec = _rec(ops, counters=rounds)
     assert spec.reader("kernels_per_step")(rec) == 1.5
     assert spec.reader("glue_ms_per_step")(rec) == pytest.approx(40.0)
-    assert spec.reader("scatter_ms_per_step")(rec) == pytest.approx(5.0)
-    assert spec.reader("scatter_ms_per_step")(_rec(ops[:2])) is None
+    assert spec.reader("particle_roofline_pct")(rec) == pytest.approx(
+        100 * 1000 * 48 / 3.35e12 / 0.01)
+    assert spec.reader("particle_roofline_pct")(_rec(ops[:2],
+                                                     counters=rounds)) is None
     assert spec.reader("host_ms_per_step")(rec) == 0.25
     # A twin without a file of its own reads with its base's reader.
     assert spec.reader("kernels_per_step.small")(rec) == 1.5

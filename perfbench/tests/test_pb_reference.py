@@ -6,7 +6,7 @@ program.)"""
 import pytest
 import torch
 
-from perfbench import check, run, spec, terrain
+from perfbench import spec, terrain
 from perfbench.reference import rng, step as reference
 
 
@@ -20,12 +20,12 @@ def test_reference_equals_the_eager_step(tiny, method):
     cell = spec.cell(bench, f"tiny.{method}")
     cfg = spec.config(cell["config"], here)
     trf = spec.traffic(cell["traffic"], here)
-    p = spec.params(cfg, trf)
-    scale = tuple(cfg["scale"])
     seed = 2**31 + 77
-    param = run.program_params(soil, p)
-    fields = run.make_fields(cfg, trf, seed, "cpu")
-    state = _canonicalize(soil.ErosionState(**fields), param)
+    mod = spec.pipeline(spec.pipeline_name(cfg), here)
+    pipe = mod.Pipeline(cfg, trf, seed, "cpu")
+    p, scale = pipe.p, pipe.scale
+    param = mod.program_params(soil, p)
+    state = _canonicalize(soil.ErosionState(**pipe.inputs()), param)
     key = seeded_generator("cpu", terrain.sim_seed(seed))
     gen = rng.generator("cpu", terrain.sim_seed(seed))
     for i in range(3):
@@ -33,7 +33,7 @@ def test_reference_equals_the_eager_step(tiny, method):
         inp = {f: getattr(state, f) for f in reference.FIELDS}
         ref = reference.erode_step(inp, scale, p, gen)
         prog = {f: getattr(out, f) for f in reference.FIELDS}
-        nums = check.compare(inp, prog, ref)
+        nums = pipe.numbers(pipe.gaps(inp, prog, ref))
         assert max(nums.values()) <= 1e-6, (i, nums)
         assert nums["fluvial"] == 0.0 or method == "particles"
         state = out

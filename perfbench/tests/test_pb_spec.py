@@ -6,7 +6,7 @@ import json
 import os
 import re
 
-from perfbench import check, spec
+from perfbench import spec
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -22,12 +22,14 @@ def test_benchmark_names_resolve():
         assert spec.config(c["name"])["reduced"] == c["reduced"]
     for cell in b["workloads"]:
         assert cell["config"] in cfgs and cell["chips"] == 1
-        p = spec.params(spec.config(cell["config"]),
-                        spec.traffic(cell["traffic"]))
-        assert p["transportMethod"] in ("field", "particles")
+        cfg = spec.config(cell["config"])
+        pipe = spec.pipeline(spec.pipeline_name(cfg)).Pipeline
         lim = spec.limits(cell["name"])["limits"]
-        assert set(lim) == set(check.NUMBERS)
-        assert lim["passthrough"] == 0.0
+        assert list(lim) == list(pipe.NUMBERS)
+        if spec.pipeline_name(cfg) == "erosion":
+            p = spec.params(cfg, spec.traffic(cell["traffic"]))
+            assert p["transportMethod"] in ("field", "particles")
+            assert lim["passthrough"] == 0.0
         e2e = spec.metrics_of(b, cell["name"], False)
         assert "setup_s" in [m["name"] for m in e2e] and len(e2e) >= 2
         assert spec.metrics_of(b, cell["name"], True)
@@ -77,5 +79,5 @@ def test_new_cell_found_by_adding_files(tiny, tmp_path):
     assert trf["params"]["transportIterations"] == 8
     assert spec.limits("tiny.field", here)["limits"]
     names = [m["name"] for m in spec.metrics_of(bench, "tiny.field", True)]
-    assert "steps_profiled" in names and "scatter_ms_per_step" not in names
+    assert "steps_profiled" in names and "particle_roofline_pct" not in names
     assert spec.reader("steps_profiled", here)({"steps": 3}) == 3.0

@@ -10,7 +10,6 @@ plain arithmetic on such lists, tested on synthetic traces.
 
 from __future__ import annotations
 
-import re
 import time
 
 
@@ -19,13 +18,9 @@ def is_cohort(name: str) -> bool:
     return "cohort_round" in name
 
 
-_SCATTER = re.compile(r"indexFunc|index_add|indexAdd")
-
-
-def is_scatter(name: str) -> bool:
-    """One of torch's index_add_ kernels (only the particle estimators
-    call index_add_ in the step)."""
-    return bool(_SCATTER.search(name))
+def is_particle(name: str) -> bool:
+    """A trajectory kernel of csrc/particle_rounds.cu (either estimator)."""
+    return "particle_rounds_kernel" in name
 
 
 def short_name(name: str, limit: int = 96) -> str:
@@ -136,7 +131,9 @@ def _events(prof):
 
 def profiled_steps(step, steps: int, device, counters) -> dict:
     """`steps` calls of `step()` under torch.profiler, each in a
-    `perfbench.step` span, then a synchronise. Returns the record's trace
+    `perfbench.step` span, then a synchronise. On a CPU device (the
+    harness's tests) the profiler traces the host alone and there is no
+    device operation. Returns the record's trace
     part: device_ops, host_spans, t0 and t1 (the traced window on the
     trace's clock), window_s (its length on the host clock), steps, and
     the change of `counters()` (a dict of dicts of counts) over the
@@ -144,16 +141,22 @@ def profiled_steps(step, steps: int, device, counters) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    torch.cuda.synchronize(device)
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    sync()
     c0 = counters()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] + [ProfilerActivity.CUDA] * cuda
+    with profile(activities=activities) as prof:
         with record_function("perfbench.window"):
             t0 = time.perf_counter()
             for _ in range(int(steps)):
                 with record_function("perfbench.step"):
                     step()
-            torch.cuda.synchronize(device)
+            sync()
             window_s = time.perf_counter() - t0
     c1 = counters()
     dev, host = _events(prof)

@@ -1,13 +1,16 @@
 """The measured window.
 
 Each step is one call of `step()`, the program's entry point, with a
-CUDA event recorded after it; nothing synchronises per step. Before each
-call the host waits on the event of the step `runahead` + 1 calls back,
-so a device-bound cell queues no work past its window and a host stall
-still shows as a gap. The window closes at the first step whose event
-falls past `seconds` after the window's start; it holds that step and
-those before it. Steps that the check samples and the window did not
-reach run after it, outside the window.
+CUDA event recorded after it; nothing synchronises per step. The host
+keeps `runahead` steps queued ahead of the one it waits for (the run sets
+that to some seconds of the cell's steps), so the card stays fed while
+the host stands still, as a shared host now and then does for a tenth of
+a second or more. When the window's seconds are up on the host's clock,
+the host sends nothing more and waits for all it sent: every step sent
+counts, and the window runs from an event recorded on the idle device
+before the first call to the last step's event, so a stall that runs to
+the end still counts as time. Steps that the check samples are sent
+before the window may close.
 
 `Keeper` copies the fields of the steps the check compares to host
 memory on a side stream, into buffers made in set-up, so the window
@@ -89,30 +92,26 @@ class Keeper:
 
 def run(step, clock: Clock, seconds: float, runahead: int, *,
         before=None, after=None, until: int = 0) -> dict:
-    """Calls `step()` until the window closes, then until `until` steps
-    have run. `before(j)` and `after(j)` are called around step j (the
-    check's copies). Returns the window's steps (`n`), its length
-    (`window_s`: from the start event, recorded on the idle device before
-    the first call, to the closing step's event), every step interval in
-    ms from the events (`intervals_ms`), the host ms of each call
-    (`host_ms`) and the steps run in all (`ran`). The events time the
-    device; a host that launches late leaves the device idle between
-    them, which the window counts."""
+    """Calls `step()` until `seconds` have passed on the host's clock and
+    `until` steps have been sent, waiting before each call on the event of
+    the step `runahead` + 1 calls back; then waits for every step sent.
+    `before(j)` and `after(j)` are called around step j (the check's
+    copies). Returns the window's steps (`n`, all that were sent), its
+    length (`window_s`: from the start event to the last step's event),
+    every step interval in ms from the events (`intervals_ms`) and the host
+    ms of each call (`host_ms`). The events time the device; a host that
+    launches late leaves the device idle between them, which the window
+    counts."""
     marks, host_ms = [], []
-    checked, close = 0, None
+    waited = 0
     clock.sync()
     start = clock.mark()
+    t0 = time.perf_counter()
     j = 0
-    while True:
-        # Bound the run-ahead, and close the window at the first completed
-        # step past `seconds`.
-        while close is None and checked < j - runahead:
-            clock.wait(marks[checked])
-            if clock.ms(start, marks[checked]) > seconds * 1e3:
-                close = checked
-            checked += 1
-        if close is not None and j >= until:
-            break
+    while j < max(until, 1) or time.perf_counter() - t0 < seconds:
+        while waited < j - runahead:
+            clock.wait(marks[waited])
+            waited += 1
         if before is not None:
             before(j)
         th = time.perf_counter()
@@ -124,10 +123,8 @@ def run(step, clock: Clock, seconds: float, runahead: int, *,
         j += 1
     clock.sync()
     prev, intervals = start, []
-    for m in marks[:close + 1]:
+    for m in marks:
         intervals.append(clock.ms(prev, m))
         prev = m
-    return {"n": close + 1,
-            "window_s": clock.ms(start, marks[close]) * 1e-3,
-            "intervals_ms": intervals, "host_ms": host_ms[:close + 1],
-            "ran": len(marks)}
+    return {"n": j, "window_s": clock.ms(start, marks[-1]) * 1e-3,
+            "intervals_ms": intervals, "host_ms": host_ms}

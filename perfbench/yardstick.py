@@ -13,6 +13,16 @@ change of the measured program moves them.
 * The byte model: per pass of K = 16 rounds a cell reads its (NSTATE + C)
   state channels, 4 aux channels and C deposits, writes state and
   deposits, and copies the state back (read + write), 4 bytes each.
+* The particle estimators' bytes a live particle-round, from the plain
+  round of `perfbench/reference/step.py` (`_particle_rounds` with each
+  estimator's `advance`), not from any kernel's layout: a particle's own
+  position, speed and attenuations stay with it (registers), so what a
+  round must move is one 4-byte read of each per-cell field that
+  `advance` gathers at the particle's cell `ind`, and one 4-byte write of
+  each channel that the round deposits into the flux. Fluvial gathers gx,
+  gy, mx, my and the discharge (5) and deposits water, mass, two momenta
+  and three albedos (C = 7): 48 B. Debris gathers gx, gy, mx, my (4) and
+  deposits mass, two momenta and three albedos (C = 6): 40 B.
 """
 
 from __future__ import annotations
@@ -54,3 +64,14 @@ def round_bound_s(kind: str, albedo: bool, cells: int) -> float:
     operations over the FP32 rate and the bytes over the HBM rate."""
     return max(round_ops(kind, albedo) * cells / FP32_FMA_PER_S,
                round_bytes(kind, albedo) * cells / HBM_BYTES_PER_S)
+
+
+# (fields gathered at `ind` by `advance`, channels deposited) of the plain
+# round, per estimator.
+PARTICLE_FIELDS = {"fluvial": (5, 7), "debris": (4, 6)}
+
+
+def particle_round_bytes(kind: str) -> float:
+    """Bytes one live particle-round of estimator `kind` must move."""
+    gathered, deposited = PARTICLE_FIELDS[kind]
+    return 4.0 * (gathered + deposited)
